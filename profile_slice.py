@@ -1,9 +1,10 @@
-"""Where the time goes in the PyTorch port's 512^2 inference slice, on one CUDA card.
+"""Where the time goes in the PyTorch port's 512^2 inference and training slices, on one CUDA card.
 
     python3 profile_slice.py [--out chiprun_out/profile_slice.json]
 
 The full-width PConvUNet with seeded random weights, TF32 off and cuDNN
-benchmark on, as in chip_smoke.py (whose helpers it uses). It measures
+benchmark on, as in chip_smoke.py (whose helpers it uses). The inference
+leg measures
 
   1. the forward alone, kernel path and plain path, tiles/s at batch 1,
      8, 16 and 32 (CUDA events, median of 5 after 2 warm-up calls);
@@ -16,8 +17,19 @@ benchmark on, as in chip_smoke.py (whose helpers it uses). It measures
      the achieved TFLOP/s, and the wrapper's share in it: the copy of
      nn.Conv2d's weight into the kernel's HWIO layout, timed alone.
 
+The train leg (G, D and VGG seeded, the full loss, one batch already on
+the card) measures
+
+  5. the train step at batch 8, 16 and 32: ms per step and samples/s
+     over 5 steps after 2 warm-up steps, two runs each (host clock
+     around synchronised steps), and the peak memory;
+  6. a torch.profiler trace of 3 steps at batch 8: busy time, idle
+     share, device time by kernel name and K1 backward's share;
+  7. K1 backward at the 7 decoder shapes at batch 8, kernel and plain ms
+     and the achieved bytes/s.
+
 It prints one line per figure and writes all of them as JSON to --out
-(and the trace beside it). Without CUDA it exits nonzero.
+(and the traces beside it). Without CUDA it exits nonzero.
 """
 
 from __future__ import annotations
@@ -34,9 +46,11 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from chip_smoke import (
-    SEED, SIZE, WIDTH, dsm_tiles, holey_mask, line, phase_build, phase_env,
-    stage_geometries, time_ms,
+    SEED, SIZE, WIDTH, device_batch, dsm_tiles, holey_mask, line, phase_build, phase_env,
+    stage_geometries, time_ms, train_state, upsample_shapes,
 )
+from terra_gan_tpu_torch.ops.cuda.upsample_kernel import upsample2x_bwd, upsample2x_bwd_plain
+from terra_gan_tpu_torch.training.step import make_train_step
 from terra_gan_tpu_torch.ops.cuda.pconv_kernel import (
     fold_batch_norm,
     fused_pconv_eval,
@@ -49,6 +63,9 @@ BATCHES = (1, 8, 16, 32)
 CHUNKS = (8, 16, 32)
 E2E_TILES = 32
 STAGE_BATCH = 8
+TRAIN_BATCHES = (8, 16, 32)
+TRAIN_STEPS = 5
+TRACE_STEPS = 3
 
 
 def forward_rates(model, dev, imgs, masks):
@@ -90,31 +107,40 @@ def union_us(intervals) -> float:
     return busy
 
 
-def trace(model, dev, imgs, masks, out: Path):
-    inp = BatchedInpainter(model, dev, chunk=CHUNKS[0], quantize_uint8=True)
-    inp(imgs[: CHUNKS[0]], masks[: CHUNKS[0]])
+def profiled(run, trace_path: Path, label: str, **fields):
+    """Trace run() once: device busy time, idle share of the host's window,
+    device time by kernel name (the top 12, and all of them as by_name_ms)."""
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        inp(imgs, masks)
+        run()
         torch.cuda.synchronize()
         window_us = (time.perf_counter() - t0) * 1e6
-    prof.export_chrome_trace(str(out.with_suffix(".trace.json")))
+    prof.export_chrome_trace(str(trace_path))
     events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     by_name = defaultdict(float)
     for e in events:
         by_name[e.name] += e.time_range.elapsed_us()
     busy = union_us((e.time_range.start, e.time_range.end) for e in events)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
-    row = dict(chunk=CHUNKS[0], tiles=len(imgs), device_events=len(events),
+    row = dict(**fields, device_events=len(events),
                window_ms=window_us / 1e3, busy_ms=busy / 1e3,
                idle_share=1.0 - busy / window_us if events else None,
-               top_ms={n: t / 1e3 for n, t in top})
-    line("trace", **{k: v for k, v in row.items() if k != "top_ms"})
+               top_ms={n: t / 1e3 for n, t in top},
+               by_name_ms={n: t / 1e3 for n, t in by_name.items()})
+    line(label, **{k: v for k, v in row.items() if not k.endswith("_ms") or k in
+                   ("window_ms", "busy_ms")})
     for n, t in top:
-        line("trace", kernel=repr(n[:90]), ms=f"{t / 1e3:.3f}",
+        line(label, kernel=repr(n[:90]), ms=f"{t / 1e3:.3f}",
              share=f"{t / max(busy, 1e-9):.4f}")
     return row
+
+
+def trace(model, dev, imgs, masks, out: Path):
+    inp = BatchedInpainter(model, dev, chunk=CHUNKS[0], quantize_uint8=True)
+    inp(imgs[: CHUNKS[0]], masks[: CHUNKS[0]])
+    return profiled(lambda: inp(imgs, masks), out.with_suffix(".trace.json"), "trace",
+                    chunk=CHUNKS[0], tiles=len(imgs))
 
 
 def stage_rates(model, dev):
@@ -140,6 +166,82 @@ def stage_rates(model, dev):
     return rows
 
 
+def train_rates(dev, imgs, masks):
+    rows = []
+    step = make_train_step()
+    for b in TRAIN_BATCHES:
+        state, vgg = train_state(SEED + 6, dev)
+        batch = device_batch(imgs[:b], masks[:b], dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        runs = []
+        try:
+            for _ in range(2):  # warm-up: cuDNN plans at this batch
+                step(state, batch, vgg)
+            for _ in range(2):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(TRAIN_STEPS):
+                    step(state, batch, vgg)
+                torch.cuda.synchronize()
+                runs.append((time.perf_counter() - t0) / TRAIN_STEPS * 1e3)
+        except torch.cuda.OutOfMemoryError as e:  # a batch that does not fit is a result
+            peak = torch.cuda.max_memory_allocated()
+            line("train", batch=b, out_of_memory=True, peak_mem_gib=f"{peak / 2**30:.2f}")
+            rows.append(dict(batch=b, out_of_memory=str(e).splitlines()[0],
+                             peak_mem_gib=peak / 2**30))
+            del state, vgg, batch
+            torch.cuda.empty_cache()
+            continue
+        peak = torch.cuda.max_memory_allocated()
+        row = dict(batch=b, ms_per_step=runs, samples_per_s=[1e3 * b / ms for ms in runs],
+                   peak_mem_gib=peak / 2**30)
+        line("train", batch=b, ms_per_step=[f"{v:.2f}" for v in runs],
+             samples_per_s=[f"{1e3 * b / v:.2f}" for v in runs], peak_mem_gib=f"{peak / 2**30:.2f}")
+        rows.append(row)
+        del state, vgg, batch
+        torch.cuda.empty_cache()
+    return rows
+
+
+def train_trace(dev, imgs, masks, out: Path):
+    b = TRAIN_BATCHES[0]
+    state, vgg = train_state(SEED + 6, dev)
+    batch = device_batch(imgs[:b], masks[:b], dev)
+    step = make_train_step()
+    for _ in range(2):
+        step(state, batch, vgg)
+
+    def run():
+        for _ in range(TRACE_STEPS):
+            step(state, batch, vgg)
+
+    row = profiled(run, out.with_name(out.stem + "_train.trace.json"), "train_trace",
+                   batch=b, steps=TRACE_STEPS)
+    k1b = sum(t for n, t in row["by_name_ms"].items() if "upsample2x_bwd" in n)
+    k1f = sum(t for n, t in row["by_name_ms"].items() if "upsample2x_fwd" in n)
+    row.update(k1_bwd_ms=k1b, k1_bwd_share=k1b / row["busy_ms"], k1_fwd_ms=k1f,
+               k1_fwd_share=k1f / row["busy_ms"])
+    line("train_trace", k1_bwd_ms=f"{k1b:.3f}", k1_bwd_share=f"{row['k1_bwd_share']:.5f}",
+         k1_fwd_ms=f"{k1f:.3f}", k1_fwd_share=f"{row['k1_fwd_share']:.5f}")
+    return row
+
+
+def k1_bwd_rates(dev):
+    gen = torch.Generator().manual_seed(SEED + 4)
+    rows = []
+    for h, c in upsample_shapes(WIDTH):
+        g = torch.randn((STAGE_BATCH, 2 * h, 2 * h, c), generator=gen).to(dev)
+        ms = time_ms(lambda: upsample2x_bwd(g))
+        plain = time_ms(lambda: upsample2x_bwd_plain(g))
+        nbytes = 4 * (g.numel() + g.numel() // 4)  # read g, write dx
+        row = dict(g=f"{STAGE_BATCH}x{2 * h}x{2 * h}x{c}", ms=ms, plain_ms=plain,
+                   mbytes=nbytes / 1e6, gbps=nbytes / ms / 1e6, plain_gbps=nbytes / plain / 1e6)
+        line("k1_bwd", **{k: f"{v:.4f}" if isinstance(v, float) else v for k, v in row.items()})
+        rows.append(row)
+    return rows
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", type=Path, default=Path("chiprun_out/profile_slice.json"))
@@ -147,15 +249,22 @@ def main() -> None:
     kind, smi = phase_env()
     phase_build()
     dev = torch.device("cuda", 0)
-    model = init_generator(WIDTH, torch.Generator().manual_seed(SEED), dev)
     imgs, masks = dsm_tiles(E2E_TILES, SIZE, SEED)
     args.out.parent.mkdir(parents=True, exist_ok=True)
-    result = dict(
-        device=kind, nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda,
+    result = dict(device=kind, nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda)
+    model = init_generator(WIDTH, torch.Generator().manual_seed(SEED), dev)
+    result.update(
         forward=forward_rates(model, dev, imgs, masks),
         e2e=e2e_rates(model, dev, imgs, masks),
         trace=trace(model, dev, imgs, masks, args.out),
         stages=stage_rates(model, dev),
+    )
+    del model
+    torch.cuda.empty_cache()
+    result.update(
+        train=train_rates(dev, imgs, masks),
+        train_trace=train_trace(dev, imgs, masks, args.out),
+        k1_bwd=k1_bwd_rates(dev),
     )
     args.out.write_text(json.dumps(result, indent=1))
     print(json.dumps({"written": str(args.out)}), flush=True)

@@ -10,7 +10,13 @@ Layout (mirrors the JAX package's names):
   ops/          partial conv and resampling in plain PyTorch; ops/cuda/
                 holds the hand-written kernels (sources in csrc/), each
                 beside its plain version and a launch count
-  models/       PConvUNet generator, eval-mode forward
+  models/       PConvUNet generator (eval and train mode), PatchGAN
+                discriminator, VGG16 features[:16] for the loss
+  losses/       the reference inpainting loss
+  training/     train state, the fused G+D step, .pth checkpoints, the
+                epoch loop
+  data/         tile datasets and the prefetching batch loader
+  config.py     the training configuration with the JAX defaults
   parallel/     BatchedInpainter: pinned, pipelined batched inference
   evaluation/   evaluate / inpaint_directory and their host helpers
   utils/        device resolution, weights carried across packages

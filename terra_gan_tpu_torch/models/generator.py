@@ -1,4 +1,4 @@
-"""PConv U-Net generator, eval-mode forward (counterpart of terra_gan_tpu/models/generator.py).
+"""PConv U-Net generator (counterpart of terra_gan_tpu/models/generator.py).
 
 Architecture contract (reference: mvp_gan/src/models/generator.py):
   * 7 encoder PConv stages, widths w, 2w, 4w, 8w x4, kernels
@@ -10,16 +10,21 @@ Architecture contract (reference: mvp_gan/src/models/generator.py):
     PConv over the upsampled features alone, a 64->1 conv, a sigmoid and
     the composite ``out * (1 - mask) + x * mask``.
 
-Every PConv stage is one ``fused_pconv_eval`` call (K2) and every
-bilinear x2 one ``upsample2x_fwd`` call (K1): on a card both are
-the hand-written kernels, on the CPU their plain versions. The nearest
-upsample, pad-to-match, mask merge, final conv, sigmoid and composite
-are plain torch, as the JAX package leaves them to XLA.
+In eval mode every PConv stage is one ``fused_pconv_eval`` call (K2);
+in train mode a stage is ``ops.pconv.partial_conv2d_split``, then
+``nn.BatchNorm2d`` on the batch statistics (torch's own train-mode
+semantics, which the JAX package's ``TorchBatchNorm`` emulates), then
+ReLU. In both modes every bilinear x2 is ``upsample2x_bilinear``: K1
+forward, and in training K1 backward, on a card; their plain versions
+on the CPU. The nearest upsample, pad-to-match, mask merge, final conv,
+sigmoid and composite are plain torch, as the JAX package leaves them
+to XLA.
 
 Tensors are NHWC, as in the JAX package; parameters carry the
-reference's state-dict keys (``encN.input_conv.*``, ``encN.bn.*``, the
-frozen ``encN.mask_conv.weight``, ``final.*``). Only the eval forward is
-ported: train mode raises.
+reference's state-dict keys and its ``.parameters()`` order
+(``encN.input_conv.*``, the frozen ``encN.mask_conv.weight``,
+``encN.bn.*``, ..., ``final.*``: 72 entries), which the torch Adam
+state of a reference ``.pth`` is numbered by.
 """
 
 from __future__ import annotations
@@ -35,22 +40,27 @@ from ..ops.cuda.pconv_kernel import (
     fused_pconv_eval,
     fused_pconv_eval_plain,
 )
-from ..ops.cuda.upsample_kernel import upsample2x_fwd, upsample2x_fwd_plain
-from ..ops.resize import pad_to_match, upsample2x_nearest
+from ..ops.cuda.upsample_kernel import upsample2x_fwd_plain
+from ..ops.pconv import partial_conv2d_split
+from ..ops.resize import pad_to_match, upsample2x_bilinear, upsample2x_nearest
 
 StageFn = Callable[..., Tuple[torch.Tensor, torch.Tensor]]
 
 
 class _MaskConv(nn.Module):
-    """The reference's frozen all-ones mask conv, kept for its state-dict key."""
+    """The reference's all-ones mask conv: a frozen parameter, as there.
+
+    It is never read (the box-sum of the mask is computed directly) but
+    keeps the reference's state-dict key and parameter order.
+    """
 
     def __init__(self, k: int):
         super().__init__()
-        self.register_buffer("weight", torch.ones(1, 1, k, k))
+        self.weight = nn.Parameter(torch.ones(1, 1, k, k), requires_grad=False)
 
 
 class PConv2d(nn.Module):
-    """Partial conv + eval BatchNorm + ReLU (reference pconv.py:25-50)."""
+    """Partial conv + BatchNorm + ReLU (reference pconv.py:25-50)."""
 
     def __init__(self, in_ch: int, out_ch: int, k: int, stride: int, padding: int):
         super().__init__()
@@ -66,11 +76,19 @@ class PConv2d(nn.Module):
         skip: Optional[torch.Tensor] = None,
         stage: StageFn = fused_pconv_eval,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(x, skip) are the two halves of an implicit channel concat."""
+        """(x, skip) are the two halves of an implicit channel concat.
+
+        ``stage`` is the eval-mode stage (K2 or its plain version); train
+        mode is plain torch whatever it is.
+        """
         if self.training:
-            raise NotImplementedError(
-                "train-mode PConv2d is not ported yet; call .eval()"
+            parts = (x,) if skip is None else (x, skip)
+            kernel = self.input_conv.weight.permute(2, 3, 1, 0)  # HWIO
+            out, new_mask = partial_conv2d_split(
+                parts, mask, kernel, self.input_conv.bias, self.stride, self.padding
             )
+            out = self.bn(out.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+            return torch.relu(out), new_mask
         bn = self.bn
         a, bb = fold_batch_norm(
             bn.weight, bn.bias, bn.running_mean, bn.running_var, bn.eps
@@ -82,7 +100,7 @@ class PConv2d(nn.Module):
 
 
 class PConvUNet(nn.Module):
-    """Partial-convolution U-Net for DSM inpainting, eval mode.
+    """Partial-convolution U-Net for DSM inpainting.
 
     forward(x, mask): x [B,H,W,1] in [0,1] (already multiplied by the
     mask, as the callers do), mask [B,H,W,1] with 1 = preserved. Returns
@@ -106,10 +124,11 @@ class PConvUNet(nn.Module):
         self.final = nn.Conv2d(w, 1, 3, padding=1)
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-        return self._run(x, mask, fused_pconv_eval, upsample2x_fwd)
+        return self._run(x, mask, fused_pconv_eval, upsample2x_bilinear)
 
     def forward_plain(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-        """The same forward through the kernels' plain versions, on any device.
+        """The same forward through the kernels' plain versions, on any device,
+        in either mode (in train mode with torch's own upsample backward).
 
         It is the reference the kernel path is held against on a card.
         """

@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels (terra_gan_tpu_torch/csrc).
 
-Every ``csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a`` into one
-shared library with a plain C interface, loaded through ``ctypes``. The
+Every ``csrc/*.cu`` is compiled by its own ``nvcc`` for ``sm_90a``, all
+started together, and the objects are linked into one shared library
+with a plain C interface, loaded through ``ctypes``. The
 build runs at the first CUDA call, never at import, so every module of
 the port imports on a host without ``nvcc`` or a card. The library goes
 under ``build/terra_gan_tpu_torch/<hash>/`` at the root of the checkout,
@@ -29,7 +30,7 @@ BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "terra_gan_tpu_torc
 LIB_NAME = "libterra_gan_kernels.so"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas=-v",  # registers, shared memory and spills, kept in build_info
 ]
 
@@ -75,19 +76,35 @@ def _digest(paths) -> str:
     return h.hexdigest()[:16]
 
 
+def _run_all(cmds):
+    """Run the commands side by side; raise on the first that failed."""
+    procs = [
+        subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for cmd in cmds
+    ]
+    logs = [proc.communicate()[0] for proc in procs]
+    for cmd, proc, log in zip(cmds, procs, logs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{log}")
+    return "".join(logs)
+
+
 def _compile(nvcc: str, srcs, so: Path) -> str:
+    """One nvcc per source, all at once, then one link into ``so``."""
     so.parent.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, srcs)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}"
+    pid = os.getpid()
+    objs = [so.with_name(f"{src.stem}.{pid}.o") for src in srcs]  # nvcc reads the suffix
+    tmp = so.with_name(f"{so.name}.{pid}.tmp")
+    try:
+        log = _run_all(
+            [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)] for src, obj in zip(srcs, objs)]
         )
-    os.replace(tmp, so)  # atomic: a concurrent build never sees half a file
-    return proc.stdout + proc.stderr
+        log += _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]])
+        os.replace(tmp, so)  # atomic: a concurrent build never sees half a file
+    finally:
+        for f in (*objs, tmp):
+            f.unlink(missing_ok=True)
+    return log
 
 
 def _bind(lib: ctypes.CDLL) -> None:
@@ -95,6 +112,8 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.tg_pconv_eval_f32.argtypes = [_P] * 9 + [_I] * 9 + [_P]
     lib.tg_upsample2x_fwd.restype = _I
     lib.tg_upsample2x_fwd.argtypes = [_P, _P] + [_I] * 5 + [_P]
+    lib.tg_upsample2x_bwd.restype = _I
+    lib.tg_upsample2x_bwd.argtypes = [_P, _P] + [_I] * 5 + [_P]
 
 
 def load_library() -> ctypes.CDLL:

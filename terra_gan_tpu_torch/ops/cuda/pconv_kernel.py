@@ -19,7 +19,10 @@ read in place. The plain version is ``ops.pconv.partial_conv2d_split``
 ReLU.
 
 ``fused_pconv_eval`` takes the plain version only for tensors on the
-CPU; for CUDA tensors it launches the kernel or raises.
+CPU; for CUDA tensors it launches the kernel or raises. The kernel has
+no backward, as in the JAX package, where a train-mode stage is the
+plain conv and BatchNorm: on a CUDA tensor under autograd it raises
+rather than return a result cut from the graph.
 """
 
 from __future__ import annotations
@@ -115,6 +118,13 @@ def fused_pconv_eval(
         )
     if x.device.type != "cuda":
         raise ValueError(f"fused_pconv_eval: no kernel for device {x.device}")
+    if torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in (x, x_skip, weight, bias, bn_a, bn_b)
+    ):
+        raise RuntimeError(
+            "fused_pconv_eval: the kernel records no gradient; run the eval "
+            "forward under torch.no_grad() or the stage in train mode"
+        )
     _check_cuda_args(x, x_skip, mask, weight, (bias, bn_a, bn_b), stride, padding)
     b, h, w, ca = x.shape
     cb = 0 if x_skip is None else x_skip.shape[-1]

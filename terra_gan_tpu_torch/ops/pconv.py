@@ -48,7 +48,9 @@ def mask_window_sum(
 
 
 def _renorm(out, mask, kh, kw, stride, padding, bias):
-    msum = mask_window_sum(mask, kh, kw, stride, padding)
+    # the ratio is data-only: no gradient flows through it (stop_gradient
+    # in the JAX package)
+    msum = mask_window_sum(mask, kh, kw, stride, padding).detach()
     valid = msum > 0
     ratio = torch.where(valid, (kh * kw) / (msum + 1e-8), torch.zeros_like(msum))
     return (out + bias) * ratio, valid.to(mask.dtype)

@@ -12,9 +12,12 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-# The JAX package's name for the NHWC 2x bilinear upsample: the K1 kernel
-# on a card, F.interpolate on the CPU.
-from .cuda.upsample_kernel import upsample2x_fwd as upsample2x_bilinear  # noqa: F401
+from .cuda.upsample_kernel import Upsample2x
+
+# The JAX package's name for the NHWC 2x bilinear upsample, with its
+# gradient: K1 forward and backward on a card, F.interpolate and its
+# autograd backward on the CPU.
+upsample2x_bilinear = Upsample2x.apply
 
 
 def upsample2x_nearest(x: torch.Tensor) -> torch.Tensor:

@@ -1,29 +1,32 @@
-"""Generator weights: from the JAX package, from a .pth, or from a seed.
+"""Weights: from the JAX package, from a .pth, or from a seed.
 
-All three give a ``PConvUNet`` in eval mode whose state dict carries the
-reference's torch keys, loaded with ``strict=True``. Conversion from the
-JAX package's variables goes through
-``terra_gan_tpu.utils.torch_compat``, which is numpy-only: importing it
-does not import JAX.
+Generators come in eval mode, discriminators in train mode (the mode
+the reference always runs them in); state dicts carry the reference's
+torch keys and load with ``strict=True``. Conversion from the JAX
+package's variables goes through ``terra_gan_tpu.utils.torch_compat``,
+which is numpy-only: importing it does not import JAX. The VGG takes
+the JAX package's ``VGGParams`` (HWIO) or a seeded He-normal init.
 """
 
 from __future__ import annotations
 
 import math
 from pathlib import Path
-from typing import Any, Mapping
+from typing import Any, Mapping, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from ..models.discriminator import Discriminator
 from ..models.generator import PConvUNet
+from ..models.vgg import VGG16Features, vgg_state_from_hwio
 from .device import resolve_device
 
 
-def _load_state(model: PConvUNet, sd: Mapping[str, Any], device) -> PConvUNet:
+def _load_state(model: torch.nn.Module, sd: Mapping[str, Any], device) -> torch.nn.Module:
     state = {k: torch.from_numpy(np.array(v, copy=True)) for k, v in sd.items()}
     model.load_state_dict(state, strict=True)
-    return model.to(resolve_device(device)).eval()
+    return model.to(resolve_device(device))
 
 
 def generator_from_jax_variables(
@@ -33,7 +36,7 @@ def generator_from_jax_variables(
     from terra_gan_tpu.utils.torch_compat import generator_vars_to_torch_state
 
     sd = generator_vars_to_torch_state(variables)
-    return _load_state(PConvUNet(base_width), sd, device)
+    return _load_state(PConvUNet(base_width), sd, device).eval()
 
 
 def load_generator(path: str | Path, device="cpu") -> PConvUNet:
@@ -52,7 +55,7 @@ def load_generator(path: str | Path, device="cpu") -> PConvUNet:
     else:
         sd = obj
     width = int(sd["enc1.input_conv.weight"].shape[0])
-    return _load_state(PConvUNet(width), sd, device)
+    return _load_state(PConvUNet(width), sd, device).eval()
 
 
 def init_generator(
@@ -71,12 +74,59 @@ def init_generator(
     with torch.no_grad():
         for mod in model.modules():
             if isinstance(mod, torch.nn.Conv2d):
-                bound = 1.0 / math.sqrt(mod.weight[0].numel())
-                mod.weight.uniform_(-bound, bound, generator=generator)
-                mod.bias.uniform_(-bound, bound, generator=generator)
+                _torch_default_init(mod, generator)
             elif isinstance(mod, torch.nn.BatchNorm2d):
                 mod.weight.uniform_(0.5, 1.5, generator=generator)
                 mod.bias.normal_(0.0, 0.1, generator=generator)
                 mod.running_mean.normal_(0.0, 0.1, generator=generator)
                 mod.running_var.uniform_(0.5, 1.5, generator=generator)
     return model.to(resolve_device(device)).eval()
+
+
+def _torch_default_init(conv: torch.nn.Conv2d, generator: torch.Generator) -> None:
+    """torch's default Conv2d init, U(+-1/sqrt(fan_in)) for weight and bias, from ``generator``."""
+    bound = 1.0 / math.sqrt(conv.weight[0].numel())
+    conv.weight.uniform_(-bound, bound, generator=generator)
+    conv.bias.uniform_(-bound, bound, generator=generator)
+
+
+def discriminator_from_jax_variables(
+    variables: Mapping[str, Any], base_width: int = 64, device="cpu"
+) -> Discriminator:
+    """The JAX package's discriminator variables (numpy arrays) as a port Discriminator."""
+    from terra_gan_tpu.utils.torch_compat import discriminator_vars_to_torch_state
+
+    sd = discriminator_vars_to_torch_state(variables)
+    return _load_state(Discriminator(base_width), sd, device)
+
+
+def init_discriminator(
+    base_width: int, generator: torch.Generator, device="cpu"
+) -> Discriminator:
+    """A Discriminator with torch's default conv init drawn from ``generator``
+    (a CPU generator) and fresh BatchNorm (ones, zeros; statistics 0 and 1)."""
+    model = Discriminator(base_width)
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, torch.nn.Conv2d):
+                _torch_default_init(mod, generator)
+    return model.to(resolve_device(device))
+
+
+def vgg_from_jax_params(params: Sequence[Tuple[Any, Any]], device="cpu") -> VGG16Features:
+    """The JAX package's ``VGGParams`` (e.g. ``random_weights(0)``) as a port VGG."""
+    return _load_state(VGG16Features(), vgg_state_from_hwio(params), device)
+
+
+def init_vgg(generator: torch.Generator, device="cpu") -> VGG16Features:
+    """A VGG with seeded He-normal conv weights and zero biases, the
+    counterpart of the JAX package's ``random_weights`` (vgg.py:52-65); torch
+    draws other numbers from the same seed, so the tests carry JAX's across."""
+    model = VGG16Features()
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, torch.nn.Conv2d):
+                fan_in = mod.weight[0].numel()
+                mod.weight.normal_(0.0, math.sqrt(2.0 / fan_in), generator=generator)
+                mod.bias.zero_()
+    return model.to(resolve_device(device))

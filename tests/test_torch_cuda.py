@@ -9,6 +9,8 @@ not installed; there, skip the JAX-forcing conftest:
 
 from __future__ import annotations
 
+import copy
+
 import numpy as np
 import pytest
 import torch
@@ -19,18 +21,25 @@ from terra_gan_tpu_torch.ops.cuda.pconv_kernel import (
     fused_pconv_eval_plain,
 )
 from terra_gan_tpu_torch.ops.cuda.upsample_kernel import (
+    Upsample2x,
+    upsample2x_bwd,
+    upsample2x_bwd_plain,
     upsample2x_fwd,
     upsample2x_fwd_plain,
 )
 from terra_gan_tpu_torch.evaluation.inference import OUTPUT_SIZE, evaluate
 from terra_gan_tpu_torch.parallel.infer import BatchedInpainter
-from terra_gan_tpu_torch.utils.weights import init_generator
+from terra_gan_tpu_torch.training.state import GANTrainState
+from terra_gan_tpu_torch.training.step import make_train_step
+from terra_gan_tpu_torch.utils.weights import init_discriminator, init_generator, init_vgg
 
 pytestmark = pytest.mark.cuda
 
 RTOL, ATOL = 1e-4, 1e-5  # fp32 sums in another order
 NRMSE_TOL = 1e-5       # the composite
 DEC1_NRMSE_TOL = 1e-6  # dec1's features: fp32 order ~3e-8, TF32 ~3e-5
+# the 7 decoder upsamples' inputs (H, C) of the full-width 512^2 model
+DECODER_SHAPES = [(4, 512), (8, 512), (16, 512), (32, 512), (64, 256), (128, 128), (256, 64)]
 
 
 def nrmse(a, b) -> float:
@@ -113,6 +122,23 @@ def test_upsample_kernel_matches_plain(card, dtype, shape):
     assert (got.float() - want).abs().max().item() <= tol
 
 
+def test_upsample_forward_gives_torchs_bits_at_decoder_shapes(card):
+    gen = torch.Generator().manual_seed(2)
+    for h, c in DECODER_SHAPES:
+        x = torch.randn((2, h, h, c), generator=gen).to(card)
+        assert torch.equal(upsample2x_fwd(x), upsample2x_fwd_plain(x)), (h, c)
+
+
+def test_upsample_kernels_count_no_launch_for_an_empty_batch(card):
+    f0, b0 = upsample2x_fwd.launches, upsample2x_bwd.launches
+    assert upsample2x_fwd(torch.zeros((0, 4, 4, 8), device=card)).shape == (0, 8, 8, 8)
+    assert upsample2x_bwd(torch.zeros((0, 8, 8, 8), device=card)).shape == (0, 4, 4, 8)
+    assert (upsample2x_fwd.launches, upsample2x_bwd.launches) == (f0, b0)
+    upsample2x_fwd(torch.zeros((1, 4, 4, 8), device=card))
+    upsample2x_bwd(torch.zeros((1, 8, 8, 8), device=card))
+    assert (upsample2x_fwd.launches, upsample2x_bwd.launches) == (f0 + 1, b0 + 1)
+
+
 def test_upsample_kernel_rejects_channels_it_cannot_vectorise(card):
     with pytest.raises(ValueError, match="C % 4 == 0"):
         upsample2x_fwd(torch.zeros((1, 4, 4, 5), device=card))
@@ -152,3 +178,73 @@ def test_evaluate_runs_a_card_model_through_the_kernels(card, tmp_path):
     assert (fused_pconv_eval.launches, upsample2x_fwd.launches) == (14, 7)
     assert next(model.parameters()).device == card  # the caller's model stays put
     assert Image.open(out).size == (OUTPUT_SIZE, OUTPUT_SIZE)
+
+
+def test_raw_wrappers_raise_under_autograd(card):
+    x = torch.rand((1, 4, 4, 8), device=card, requires_grad=True)
+    with pytest.raises(RuntimeError, match="records no gradient"):
+        upsample2x_fwd(x)
+    args, _ = stage_args(0, 8, 8, 0, 8, 3, 1, card)
+    args[2].requires_grad_(True)
+    with pytest.raises(RuntimeError, match="records no gradient"):
+        fused_pconv_eval(*args)
+    with torch.no_grad():  # the eval forward's own mode
+        fused_pconv_eval(*args)
+        upsample2x_fwd(x)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_upsample_autograd_matches_plain_at_decoder_shapes(card, dtype):
+    gen = torch.Generator().manual_seed(3)
+    for h, c in DECODER_SHAPES:
+        x = torch.rand((2, h, h, c), generator=gen).to(card, dtype).requires_grad_(True)
+        g = torch.rand((2, 2 * h, 2 * h, c), generator=gen).to(card, dtype)
+        f0, b0 = upsample2x_fwd.launches, upsample2x_bwd.launches
+        Upsample2x.apply(x).backward(g)
+        assert (upsample2x_fwd.launches - f0, upsample2x_bwd.launches - b0) == (1, 1)
+        want = upsample2x_bwd_plain(g.float())
+        err = (x.grad.float() - want).abs()
+        if dtype == torch.float32:
+            assert err.max().item() <= 1e-6 * want.abs().max().item(), (h, c)
+        else:  # one rounding of a positive fp32 sum: half a bf16 ulp
+            assert (err <= 2.0 ** -8 * want.abs()).all().item(), (h, c)
+
+
+def test_upsample_backward_takes_a_strided_gradient(card):
+    x = torch.rand((2, 8, 8, 16), device=card, requires_grad=True)
+    g = torch.rand((2, 16, 16, 16), device=card).permute(0, 2, 1, 3)  # not contiguous
+    Upsample2x.apply(x).backward(g)
+    torch.testing.assert_close(x.grad, upsample2x_bwd_plain(g.contiguous()), rtol=0, atol=1e-6)
+    with pytest.raises(ValueError, match="C % 4 == 0"):
+        upsample2x_bwd(torch.zeros((1, 8, 8, 6), device=card))
+
+
+def test_train_step_kernel_path_matches_plain_path(card):
+    gen = torch.Generator().manual_seed(4)
+    state = GANTrainState.create(init_generator(16, gen, card), init_discriminator(16, gen, card))
+    vgg = init_vgg(gen, card)
+    plain = copy.deepcopy(state)
+    plain.generator.forward = plain.generator.forward_plain
+    g = np.random.default_rng(5)
+    x = g.random((2, 128, 128, 1), dtype=np.float32)
+    m = (g.random((2, 128, 128, 1)) > 0.3).astype(np.float32)
+    m[:, 32:80, 16:64] = 0
+    batch = {"image": torch.from_numpy(x).to(card), "mask": torch.from_numpy(m).to(card)}
+    step = make_train_step()
+    counts = [f.launches for f in (fused_pconv_eval, upsample2x_fwd, upsample2x_bwd)]
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        got = step(state, batch, vgg)
+        counts = [f.launches - c for f, c in zip((fused_pconv_eval, upsample2x_fwd, upsample2x_bwd), counts)]
+        want = step(plain, batch, vgg)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    assert counts == [0, 7, 7]
+    for k, v in want.items():
+        assert abs(got[k].item() - v.item()) <= 1e-5 * abs(v.item()), k
+    lr = 2e-4  # Adam's first step is about lr * sign(grad): a sign flip moves 2 lr
+    for mod, ref in ((state.generator, plain.generator), (state.discriminator, plain.discriminator)):
+        for (n, a), b in zip(mod.state_dict().items(), ref.state_dict().values()):
+            if a.is_floating_point():
+                assert (a - b).abs().max().item() < 2.2 * lr, n

@@ -11,12 +11,16 @@ from __future__ import annotations
 
 import numpy as np
 import pytest
+import jax
 import jax.numpy as jnp
 import torch
 
 from terra_gan_tpu.ops import resize as jresize
 from terra_gan_tpu.ops.pallas.pconv_kernel import fused_pconv_eval as jax_fused
-from terra_gan_tpu.ops.pallas.upsample_kernel import upsample2x_fwd_pallas
+from terra_gan_tpu.ops.pallas.upsample_kernel import (
+    upsample2x_bwd_pallas,
+    upsample2x_fwd_pallas,
+)
 from terra_gan_tpu.ops.pconv import partial_conv2d as jax_pconv
 from terra_gan_tpu_torch.ops.cuda import _build
 from terra_gan_tpu_torch.ops.cuda.pconv_kernel import (
@@ -25,6 +29,9 @@ from terra_gan_tpu_torch.ops.cuda.pconv_kernel import (
     fused_pconv_eval_plain,
 )
 from terra_gan_tpu_torch.ops.cuda.upsample_kernel import (
+    Upsample2x,
+    upsample2x_bwd,
+    upsample2x_bwd_plain,
     upsample2x_fwd,
     upsample2x_fwd_plain,
 )
@@ -117,9 +124,34 @@ def test_upsample_plain_matches_pallas_kernel_and_resize(shape):
     )
 
 
+@pytest.mark.parametrize("shape", [(2, 8, 8, 8), (1, 4, 6, 4), (2, 1, 1, 16), (1, 2, 2, 8)])
+def test_upsample_adjoint_plain_matches_pallas_kernel_and_jax_vjp(shape):
+    """K1 bwd's plain version against the Pallas adjoint (interpret mode)
+    and the JAX package's custom_vjp backward, fp32."""
+    n, h, w, c = shape
+    rng = np.random.default_rng(sum(shape) + 1)
+    g = rng.standard_normal((n, 2 * h, 2 * w, c)).astype(np.float32)
+    got = upsample2x_bwd(t(g)).numpy()
+    want = np.asarray(upsample2x_bwd_pallas(jnp.asarray(g), interpret=True))
+    x = jnp.zeros(shape, jnp.float32)
+    (want_vjp,) = jax.vjp(jresize.upsample2x_bilinear, x)[1](jnp.asarray(g))
+    for ref in (want, np.asarray(want_vjp)):
+        assert got.shape == ref.shape == shape
+        assert np.abs(got - ref).max() <= 1e-6 * np.abs(ref).max()
+
+
+def test_upsample_autograd_function_passes_gradcheck_in_f64():
+    x = torch.rand((2, 3, 5, 2), dtype=torch.float64, requires_grad=True)
+    assert torch.autograd.gradcheck(Upsample2x.apply, (x,))
+    g = torch.rand((2, 6, 10, 2), dtype=torch.float64)
+    (dx,) = torch.autograd.grad(Upsample2x.apply(x), x, g)
+    assert torch.equal(dx, upsample2x_bwd_plain(g))
+
+
 def test_cpu_tensors_take_the_plain_version_and_count_nothing():
     fused_pconv_eval.launches = 0
     upsample2x_fwd.launches = 0
+    upsample2x_bwd.launches = 0
     x, xs, m, w, b, bn = stage_inputs(0, 16, 8, 4, 8, 3)
     a, bb = fold_batch_norm(*(t(bn[n]) for n in ("bn_scale", "bn_bias", "bn_mean", "bn_var")))
     args = (t(x), t(m), oihw(w), t(b), 1, 1, a, bb)
@@ -127,7 +159,11 @@ def test_cpu_tensors_take_the_plain_version_and_count_nothing():
     want, want_m = fused_pconv_eval_plain(*args, x_skip=t(xs))
     assert torch.equal(got, want) and torch.equal(got_m, want_m)
     assert torch.equal(upsample2x_fwd(t(x)), upsample2x_fwd_plain(t(x)))
-    assert fused_pconv_eval.launches == 0 and upsample2x_fwd.launches == 0
+    assert torch.equal(upsample2x_bwd(t(x)), upsample2x_bwd_plain(t(x)))
+    x = t(x).requires_grad_(True)  # the plain version records its graph on the CPU
+    Upsample2x.apply(x).sum().backward()
+    assert x.grad is not None
+    assert fused_pconv_eval.launches == upsample2x_fwd.launches == upsample2x_bwd.launches == 0
 
 
 def test_other_devices_raise_instead_of_falling_back():
@@ -136,6 +172,8 @@ def test_other_devices_raise_instead_of_falling_back():
 
     with pytest.raises(ValueError, match="no kernel"):
         upsample2x_fwd(meta(1, 4, 4, 8))
+    with pytest.raises(ValueError, match="no kernel"):
+        upsample2x_bwd(meta(1, 8, 8, 8))
     with pytest.raises(ValueError, match="no kernel"):
         fused_pconv_eval(
             meta(1, 4, 4, 8), meta(1, 4, 4, 1), meta(8, 8, 3, 3), meta(8),
