@@ -3,9 +3,13 @@
 Generators come in eval mode, discriminators in train mode (the mode
 the reference always runs them in); state dicts carry the reference's
 torch keys and load with ``strict=True``. Conversion from the JAX
-package's variables goes through ``terra_gan_tpu.utils.torch_compat``,
-which is numpy-only: importing it does not import JAX. The VGG takes
-the JAX package's ``VGGParams`` (HWIO) or a seeded He-normal init.
+package's variables (numpy pytrees) goes through the port's own
+``utils.torch_compat``. The VGG takes the JAX package's ``VGGParams``
+(HWIO) or a seeded He-normal init.
+
+Every constructor builds on the card unless the caller asks for the
+CPU (``device="cpu"``); asking for the card where CUDA is absent raises
+(``resolve_device``).
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ from ..models.discriminator import Discriminator
 from ..models.generator import PConvUNet
 from ..models.vgg import VGG16Features, vgg_state_from_hwio
 from .device import resolve_device
+from .torch_compat import discriminator_vars_to_torch_state, generator_vars_to_torch_state
 
 
 def _load_state(model: torch.nn.Module, sd: Mapping[str, Any], device) -> torch.nn.Module:
@@ -30,16 +35,14 @@ def _load_state(model: torch.nn.Module, sd: Mapping[str, Any], device) -> torch.
 
 
 def generator_from_jax_variables(
-    variables: Mapping[str, Any], base_width: int = 64, device="cpu"
+    variables: Mapping[str, Any], base_width: int = 64, device="cuda"
 ) -> PConvUNet:
     """The JAX package's generator variables (numpy arrays) as a port PConvUNet."""
-    from terra_gan_tpu.utils.torch_compat import generator_vars_to_torch_state
-
     sd = generator_vars_to_torch_state(variables)
     return _load_state(PConvUNet(base_width), sd, device).eval()
 
 
-def load_generator(path: str | Path, device="cpu") -> PConvUNet:
+def load_generator(path: str | Path, device="cuda") -> PConvUNet:
     """A generator from a reference-layout .pth.
 
     Accepts a master dict (``generator_state_dict``), a human-guided
@@ -59,7 +62,7 @@ def load_generator(path: str | Path, device="cpu") -> PConvUNet:
 
 
 def init_generator(
-    base_width: int, generator: torch.Generator, device="cpu"
+    base_width: int, generator: torch.Generator, device="cuda"
 ) -> PConvUNet:
     """A PConvUNet with random weights drawn from ``generator`` (a CPU generator).
 
@@ -91,17 +94,15 @@ def _torch_default_init(conv: torch.nn.Conv2d, generator: torch.Generator) -> No
 
 
 def discriminator_from_jax_variables(
-    variables: Mapping[str, Any], base_width: int = 64, device="cpu"
+    variables: Mapping[str, Any], base_width: int = 64, device="cuda"
 ) -> Discriminator:
     """The JAX package's discriminator variables (numpy arrays) as a port Discriminator."""
-    from terra_gan_tpu.utils.torch_compat import discriminator_vars_to_torch_state
-
     sd = discriminator_vars_to_torch_state(variables)
     return _load_state(Discriminator(base_width), sd, device)
 
 
 def init_discriminator(
-    base_width: int, generator: torch.Generator, device="cpu"
+    base_width: int, generator: torch.Generator, device="cuda"
 ) -> Discriminator:
     """A Discriminator with torch's default conv init drawn from ``generator``
     (a CPU generator) and fresh BatchNorm (ones, zeros; statistics 0 and 1)."""
@@ -113,12 +114,12 @@ def init_discriminator(
     return model.to(resolve_device(device))
 
 
-def vgg_from_jax_params(params: Sequence[Tuple[Any, Any]], device="cpu") -> VGG16Features:
+def vgg_from_jax_params(params: Sequence[Tuple[Any, Any]], device="cuda") -> VGG16Features:
     """The JAX package's ``VGGParams`` (e.g. ``random_weights(0)``) as a port VGG."""
     return _load_state(VGG16Features(), vgg_state_from_hwio(params), device)
 
 
-def init_vgg(generator: torch.Generator, device="cpu") -> VGG16Features:
+def init_vgg(generator: torch.Generator, device="cuda") -> VGG16Features:
     """A VGG with seeded He-normal conv weights and zero biases, the
     counterpart of the JAX package's ``random_weights`` (vgg.py:52-65); torch
     draws other numbers from the same seed, so the tests carry JAX's across."""

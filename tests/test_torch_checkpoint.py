@@ -46,7 +46,7 @@ def t(a):
 
 def port_state(seed: int) -> GANTrainState:
     g = torch.Generator().manual_seed(seed)
-    return GANTrainState.create(init_generator(WIDTH, g), init_discriminator(WIDTH, g))
+    return GANTrainState.create(init_generator(WIDTH, g, "cpu"), init_discriminator(WIDTH, g, "cpu"))
 
 
 @pytest.fixture(scope="module")

@@ -21,9 +21,14 @@ import jax.numpy as jnp
 import torch
 
 from terra_gan_tpu.evaluation.inference import load_generator_variables
+from terra_gan_tpu.models import Discriminator as JaxDiscriminator
 from terra_gan_tpu.models import PConvUNet as JaxPConvUNet
+from terra_gan_tpu.utils import torch_compat as jax_compat
 from terra_gan_tpu.utils.torch_compat import generator_vars_to_torch_state, save_pth
 from terra_gan_tpu_torch.models import PConvUNet
+from terra_gan_tpu_torch.utils import device as tdevice
+from terra_gan_tpu_torch.utils import torch_compat as port_compat
+from terra_gan_tpu_torch.utils import weights as tweights
 from terra_gan_tpu_torch.utils.weights import (
     generator_from_jax_variables,
     init_generator,
@@ -107,7 +112,7 @@ def test_eval_forward_matches_jax(w8, width, hw):
     g, v = w8 if width == 8 else jax_variables(width)
     x, m = tiles(hw)
     want, want_dec1 = jax_forward_dec1(g, v, x, m)
-    got, got_dec1 = port_forward_dec1(generator_from_jax_variables(v, width), x, m)
+    got, got_dec1 = port_forward_dec1(generator_from_jax_variables(v, width, "cpu"), x, m)
     assert got.shape == want.shape == x.shape
     assert got_dec1.shape == want_dec1.shape == (*x.shape[:3], width)
     assert nrmse(got, want) <= NRMSE_TOL
@@ -126,9 +131,60 @@ def test_state_dict_keys_are_the_reference_keys(w8):
     assert torch.equal(sd["enc1.mask_conv.weight"], torch.ones(1, 1, 7, 7))
 
 
+def assert_same_state(got, want):
+    """Key for key, in order, and bit for bit."""
+    assert list(got) == list(want)
+    for key in want:
+        a, b = np.asarray(got[key]), np.asarray(want[key])
+        assert a.dtype == b.dtype and a.shape == b.shape, key
+        assert a.tobytes() == b.tobytes(), key
+
+
+@pytest.mark.parametrize("batch_stats", [True, False])  # absent statistics: zeros and ones
+def test_port_torch_compat_is_the_jax_modules_bit_for_bit(w8, batch_stats):
+    _, gv = w8
+    z = jnp.zeros((1, 64, 64, 1))
+    dv = jax.jit(JaxDiscriminator(base_width=8).init, static_argnums=2)(jax.random.PRNGKey(1), z, False)
+    dv = jax.tree_util.tree_map(lambda a: np.array(a, copy=True), dv)
+    if not batch_stats:
+        gv, dv = {"params": gv["params"]}, {"params": dv["params"]}
+    assert_same_state(port_compat.generator_vars_to_torch_state(gv),
+                      jax_compat.generator_vars_to_torch_state(gv))
+    assert_same_state(port_compat.discriminator_vars_to_torch_state(dv),
+                      jax_compat.discriminator_vars_to_torch_state(dv))
+    w = np.random.default_rng(0).random((8, 4, 3, 5), dtype=np.float32)
+    for conv in (w, torch.from_numpy(w)):
+        assert port_compat._oihw_to_hwio(conv).tobytes() == jax_compat._oihw_to_hwio(conv).tobytes()
+    assert port_compat._hwio_to_oihw(w).tobytes() == jax_compat._hwio_to_oihw(w).tobytes()
+
+
+@pytest.mark.parametrize("build", [
+    lambda: tweights.init_generator(8, torch.Generator().manual_seed(0)),
+    lambda: tweights.init_discriminator(8, torch.Generator().manual_seed(0)),
+    lambda: tweights.init_vgg(torch.Generator().manual_seed(0)),
+])
+def test_constructors_default_to_the_card(monkeypatch, build):
+    """No CUDA, no device named: the constructor raises rather than build on the CPU."""
+    monkeypatch.setattr(tdevice.torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        build()
+
+
+def test_load_generator_defaults_to_the_card(w8, tmp_path, monkeypatch):
+    _, v = w8
+    path = tmp_path / "g.pth"
+    save_pth(path, generator_vars_to_torch_state(v))
+    monkeypatch.setattr(tdevice.torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tweights.load_generator(path)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tweights.generator_from_jax_variables(v, 8)
+    assert tweights.load_generator(path, "cpu").base_width == 8
+
+
 def test_pth_round_trip_port_to_jax(w8, tmp_path):
     g, v = w8
-    model = generator_from_jax_variables(v, 8)
+    model = generator_from_jax_variables(v, 8, "cpu")
     path = tmp_path / "port.pth"
     torch.save({"generator_state_dict": model.state_dict()}, path)
     x, m = tiles(64, seed=2)
@@ -140,14 +196,14 @@ def test_pth_round_trip_jax_to_port(w8, tmp_path):
     g, v = w8
     path = tmp_path / "jax.pth"
     save_pth(path, generator_vars_to_torch_state(v))
-    model = load_generator(path)  # strict=True inside
+    model = load_generator(path, "cpu")  # strict=True inside
     assert model.base_width == 8 and not model.training
     x, m = tiles(64, seed=3)
     assert nrmse(port_forward(model, x, m), jax_forward(g, v, x, m)) <= NRMSE_TOL
 
 
 def test_plain_forward_is_the_forward_on_cpu():
-    model = init_generator(8, torch.Generator().manual_seed(4))
+    model = init_generator(8, torch.Generator().manual_seed(4), "cpu")
     x, m = tiles(64, seed=4)
     xt, mt = torch.from_numpy(x * m), torch.from_numpy(m)
     with torch.inference_mode():
@@ -155,9 +211,9 @@ def test_plain_forward_is_the_forward_on_cpu():
 
 
 def test_init_generator_is_seeded_and_draws_batch_norm():
-    a = init_generator(8, torch.Generator().manual_seed(5)).state_dict()
-    b = init_generator(8, torch.Generator().manual_seed(5)).state_dict()
-    c = init_generator(8, torch.Generator().manual_seed(6)).state_dict()
+    a = init_generator(8, torch.Generator().manual_seed(5), "cpu").state_dict()
+    b = init_generator(8, torch.Generator().manual_seed(5), "cpu").state_dict()
+    c = init_generator(8, torch.Generator().manual_seed(6), "cpu").state_dict()
     assert all(torch.equal(a[k], b[k]) for k in a)
     assert not torch.equal(a["enc3.input_conv.weight"], c["enc3.input_conv.weight"])
     assert (a["dec2.bn.running_var"] > 0).all()
@@ -166,7 +222,7 @@ def test_init_generator_is_seeded_and_draws_batch_norm():
 
 
 def test_train_mode_runs_and_updates_batch_norm_statistics():
-    model = init_generator(8, torch.Generator().manual_seed(7)).train()
+    model = init_generator(8, torch.Generator().manual_seed(7), "cpu").train()
     x, m = tiles(64)
     before = {k: v.clone() for k, v in model.state_dict().items()}
     out = model(torch.from_numpy(x * m), torch.from_numpy(m))

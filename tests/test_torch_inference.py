@@ -38,7 +38,7 @@ def models():
         c = stats["bn"]["mean"].shape[0]
         stats["bn"]["mean"] = rng.normal(0.0, 0.1, c).astype(np.float32)
         stats["bn"]["var"] = rng.uniform(0.5, 1.5, c).astype(np.float32)
-    return g, v, generator_from_jax_variables(v, 8)
+    return g, v, generator_from_jax_variables(v, 8, "cpu")
 
 
 def u8_tiles(n: int, seed: int = 0):

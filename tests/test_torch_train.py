@@ -92,7 +92,7 @@ def test_discriminator_matches_jax(jax_vars, train):
         stats["var"] = rng.uniform(0.5, 1.5, stats["var"].shape).astype(np.float32)
     x = np.random.default_rng(4).random((2, HW, HW, 1), dtype=np.float32)
     want, upd = JD(base_width=WIDTH).apply(dv, jnp.asarray(x), train, mutable=["batch_stats"])
-    D = discriminator_from_jax_variables(dv, WIDTH).train(train)
+    D = discriminator_from_jax_variables(dv, WIDTH, "cpu").train(train)
     with torch.no_grad():
         got = D(t(x))
     assert got.shape == want.shape == (2, HW // 16 - 1, HW // 16 - 1, 1)
@@ -105,7 +105,7 @@ def test_discriminator_matches_jax(jax_vars, train):
 def test_discriminator_parameter_order_is_the_references():
     from terra_gan_tpu.training.checkpoint import _disc_param_entries
 
-    names = [n for n, _ in init_discriminator(8, torch.Generator().manual_seed(0)).named_parameters()]
+    names = [n for n, _ in init_discriminator(8, torch.Generator().manual_seed(0), "cpu").named_parameters()]
     assert names == [n for n, _ in _disc_param_entries()] and len(names) == 16
 
 
@@ -113,7 +113,7 @@ def test_vgg_features_match_jax_and_load_torchvision_layouts(jax_vars):
     _, _, params = jax_vars
     x = np.random.default_rng(5).random((2, HW, HW, 1), dtype=np.float32)
     want = np.asarray(vgg16_features(jnp.asarray(x), params))
-    vgg = vgg_from_jax_params(params)
+    vgg = vgg_from_jax_params(params, "cpu")
     with torch.no_grad():
         got = vgg(t(x))
     assert got.shape == want.shape == (2, HW // 4, HW // 4, 256)
@@ -129,8 +129,8 @@ def test_vgg_features_match_jax_and_load_torchvision_layouts(jax_vars):
 
 
 def test_init_vgg_is_seeded_he_normal():
-    a = init_vgg(torch.Generator().manual_seed(0))
-    b = init_vgg(torch.Generator().manual_seed(0))
+    a = init_vgg(torch.Generator().manual_seed(0), "cpu")
+    b = init_vgg(torch.Generator().manual_seed(0), "cpu")
     assert all(torch.equal(p, q) for p, q in zip(a.parameters(), b.parameters()))
     w = a.features[14].weight
     assert abs(w.std().item() / np.sqrt(2.0 / (9 * 256)) - 1.0) < 0.05
@@ -170,7 +170,7 @@ def test_inpainting_loss_components_match_jax(jax_vars):
     _, _, params = jax_vars
     pred, real, mask = _loss_cases()
     want_total, want = jloss.inpainting_loss(pred, real, mask, params, JLossCfg())
-    got_total, got = inpainting_loss(t(pred), t(real), t(mask), vgg_from_jax_params(params))
+    got_total, got = inpainting_loss(t(pred), t(real), t(mask), vgg_from_jax_params(params, "cpu"))
     assert set(got) == set(want) == {"l1", "perceptual", "tv", "boundary", "total"}
     for k in want:
         np.testing.assert_allclose(got[k].item(), float(want[k]), rtol=LOSS_REL_TOL, err_msg=k)
@@ -196,9 +196,9 @@ def test_train_step_fp32_losses_match_jax(jax_vars):
     jstep = j_make_train_step(jG, jD, j_adam(), j_adam(), JLossCfg(), donate=False)
     _, want = jstep(jstate, {"image": jnp.asarray(real), "mask": jnp.asarray(mask)},
                     [(jnp.asarray(k), jnp.asarray(b)) for k, b in params])
-    state = GANTrainState.create(generator_from_jax_variables(gv, WIDTH),
-                                 discriminator_from_jax_variables(dv, WIDTH))
-    got = make_train_step()(state, {"image": t(real), "mask": t(mask)}, vgg_from_jax_params(params))
+    state = GANTrainState.create(generator_from_jax_variables(gv, WIDTH, "cpu"),
+                                 discriminator_from_jax_variables(dv, WIDTH, "cpu"))
+    got = make_train_step()(state, {"image": t(real), "mask": t(mask)}, vgg_from_jax_params(params, "cpu"))
     assert set(got) == set(want)
     for k in ("g_loss", "d_loss", "real_loss", "fake_loss"):
         assert abs(got[k].item() - float(want[k])) < 2e-4, k
@@ -207,7 +207,7 @@ def test_train_step_fp32_losses_match_jax(jax_vars):
 
 def _state(seed: int):
     g = torch.Generator().manual_seed(seed)
-    return GANTrainState.create(init_generator(WIDTH, g), init_discriminator(WIDTH, g))
+    return GANTrainState.create(init_generator(WIDTH, g, "cpu"), init_discriminator(WIDTH, g, "cpu"))
 
 
 @pytest.mark.parametrize("faithful", [True, False])
@@ -216,7 +216,7 @@ def test_eval_step_d_statistics_follow_the_mode(faithful):
     state = _state(9)
     before = {k: v.clone() for k, v in state.discriminator.state_dict().items()}
     gen, metrics = make_eval_step(torch_faithful_d_mode=faithful)(
-        state, {"image": t(real), "mask": t(mask)}, init_vgg(torch.Generator().manual_seed(1)))
+        state, {"image": t(real), "mask": t(mask)}, init_vgg(torch.Generator().manual_seed(1), "cpu"))
     after = state.discriminator.state_dict()
     moved = any(not torch.equal(before[k], after[k]) for k in before if "running" in k)
     assert moved == faithful  # the reference quirk: D in train mode in validation
@@ -230,7 +230,7 @@ def test_eval_step_d_statistics_follow_the_mode(faithful):
 def test_train_step_updates_both_networks_and_leaves_vgg_and_mask_convs():
     real, mask = batch_np(seed=10)
     state = _state(11)
-    vgg = init_vgg(torch.Generator().manual_seed(2))
+    vgg = init_vgg(torch.Generator().manual_seed(2), "cpu")
     g0 = {k: v.clone() for k, v in state.generator.state_dict().items()}
     d0 = {k: v.clone() for k, v in state.discriminator.state_dict().items()}
     v0 = {k: v.clone() for k, v in vgg.state_dict().items()}

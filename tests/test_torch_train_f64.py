@@ -96,11 +96,11 @@ def _measure() -> dict:
     np_tree = lambda tree: jax.tree.map(np.asarray, tree)  # noqa: E731
 
     def port_state():
-        G = generator_from_jax_variables(np_tree(gv), WIDTH).double()
-        D = discriminator_from_jax_variables(np_tree(dv), WIDTH).double()
+        G = generator_from_jax_variables(np_tree(gv), WIDTH, "cpu").double()
+        D = discriminator_from_jax_variables(np_tree(dv), WIDTH, "cpu").double()
         return GANTrainState.create(G, D, LR)
 
-    vgg = vgg_from_jax_params(vgg_np).double()
+    vgg = vgg_from_jax_params(vgg_np, "cpu").double()
     batch = {"image": torch.from_numpy(real), "mask": torch.from_numpy(mask)}
     jr, jm = jnp.asarray(real), jnp.asarray(mask)
     blocks = [f"enc{i}" for i in range(1, 8)] + [f"dec{i}" for i in range(7, 0, -1)]
