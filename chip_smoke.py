@@ -29,8 +29,24 @@ Phases, one line of figures each (any failure raises and exits nonzero):
      backward, once through K1 and once through torch's own upsample,
      cuDNN deterministic: the gradient at dec1's upsample input and the
      per-block weight gradients held to one bound, which the plain path
-     run in TF32 must exceed.
-Then a JSON line of per-kernel figures, and last
+     run in TF32 must exceed;
+ 10. k3: K3 fused_decoder_tail against its plain version on the
+     full-width model's own dec2 features and masks at batch 2, 512^2,
+     in the model's one-input form and with a seeded k_skip (the JAX
+     form), with the model's tail weights and with seeded tail weights
+     whose logits spread over units (features at unit RMS, xm = 0);
+     there the plain tail run in TF32 must fail the same bound. Times of
+     K3, its plain version and the
+     unfused kernel path (K1 + K2 dec1 + cuDNN's final conv + composite);
+ 11. serve: the port's HTTP server in a thread on 127.0.0.1 with the
+     full-width 512^2 model, fused_tail on, max_batch 8 and an auth
+     secret; through the port's client 16 concurrent /inpaint requests
+     and one /inpaint_batch of 4, /healthz, /stats, /metrics and a 401;
+     every response within 1 grey level of BatchedInpainter's output
+     with the unfused tail, and 1 K3, 13 K2 and 6 K1 launches a forward.
+Then a JSON line of per-kernel figures (each with its bound: the larger
+of its bytes over 3.35 TB/s and its operations over the 67 TFLOP/s of
+fp32 outside the tensor cores, from this run's shapes), and last
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Without CUDA it exits nonzero before printing any result.
 """
@@ -45,11 +61,15 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import urllib.error
+import urllib.request
 from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from terra_gan_tpu_torch.evaluation.inference import OUTPUT_SIZE, evaluate, inpaint_directory
 from terra_gan_tpu_torch.ops.cuda._build import build_info, load_library
@@ -65,7 +85,11 @@ from terra_gan_tpu_torch.ops.cuda.upsample_kernel import (
     upsample2x_fwd,
     upsample2x_fwd_plain,
 )
+from terra_gan_tpu_torch.ops.cuda.tail_kernel import fused_decoder_tail, fused_decoder_tail_plain
+from terra_gan_tpu_torch.ops.resize import upsample2x_bilinear
 from terra_gan_tpu_torch.parallel.infer import BatchedInpainter
+from terra_gan_tpu_torch.portal import jwt_auth
+from terra_gan_tpu_torch.serving import InpaintClient, InpaintService, make_server
 from terra_gan_tpu_torch.training.checkpoint import import_pth
 from terra_gan_tpu_torch.training.loop import train
 from terra_gan_tpu_torch.training.state import GANTrainState
@@ -99,6 +123,15 @@ N_TRAIN, N_VAL, TRAIN_BATCH = 24, 8, 8
 # against itself already reads 9e-8 at the upsample input and 1.5e-6 a
 # block; the plain path in TF32 reads 7e-2 and 5e-2:
 GRAD_TOL = 1e-5
+# K3 against its plain version, NRMSE of the composite: fp32 sums in
+# another order; the plain tail in TF32 must exceed it on the spread weights
+K3_NRMSE_TOL = 1e-5
+SERVE_REQUESTS, SERVE_BATCH_ITEMS, SERVE_MAX_BATCH = 16, 4, 8
+SERVE_SECRET = "chip-smoke-secret"
+# the card's peaks (NVIDIA's H100 SXM data sheet): fp32 outside the tensor
+# cores and device memory; a kernel's bound is the larger of its two times
+FP32_FLOPS = 67e12
+HBM_BYTES_PER_S = 3.35e12
 
 
 def require(cond: bool, msg: str) -> None:
@@ -124,6 +157,16 @@ def time_ms(fn, reps: int = REPS, warmup: int = 2) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def bound(flop: float, nbytes: float) -> dict:
+    """The least time the card could take for the work, and what bounds it."""
+    t_ops, t_bytes = flop / FP32_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return {"bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
 def nrmse(a, b) -> float:
@@ -188,7 +231,7 @@ def phase_build():
 
 def phase_k2(model, dev):
     gen = torch.Generator().manual_seed(SEED + 1)
-    worst_abs, ms, plain_ms = 0.0, 0.0, 0.0
+    worst_abs, ms, plain_ms, flop, moved = 0.0, 0.0, 0.0, 0.0, 0
     for name, h, ca, cb, st in stage_geometries(model, SIZE):
         x = torch.rand((STAGE_BATCH, h, h, ca), generator=gen).to(dev)
         xs = torch.rand((STAGE_BATCH, h, h, cb), generator=gen).to(dev) if cb else None
@@ -215,7 +258,11 @@ def phase_k2(model, dev):
         require(err <= K2_REL_TOL * scale, f"K2 {name}: err {err} > {K2_REL_TOL} * {scale}")
         require(masks_equal, f"K2 {name}: new_mask differs from the plain version")
         worst_abs, ms, plain_ms = max(worst_abs, err), ms + t_k, plain_ms + t_p
-    return worst_abs, ms, plain_ms
+        flop += 2.0 * got.numel() * weight[0].numel()
+        moved += nbytes(x, xs, m, weight, bias, a, bb, got, got_m)
+    # no one PyTorch call computes a PConv stage (conv, box-sum, renorm, BN, ReLU)
+    return dict(max_abs_err=worst_abs, ms=ms, plain_ms=plain_ms, **bound(flop, moved),
+                library_ms=None)
 
 
 def _bf16_ulp(v: torch.Tensor) -> torch.Tensor:
@@ -233,7 +280,7 @@ def upsample_shapes(width: int):
 
 def phase_k1(model, dev):
     gen = torch.Generator().manual_seed(SEED + 2)
-    worst_abs, ms, plain_ms = 0.0, 0.0, 0.0
+    worst_abs, ms, plain_ms, lib_ms, flop, moved = 0.0, 0.0, 0.0, 0.0, 0.0, 0
     for h, c in upsample_shapes(model.base_width):
         x = torch.rand((STAGE_BATCH, h, h, c), generator=gen).to(dev)
         got, want = upsample2x_fwd(x), upsample2x_fwd_plain(x)
@@ -246,18 +293,25 @@ def phase_k1(model, dev):
         t_p = time_ms(lambda: upsample2x_fwd_plain(x))
         t_kb = time_ms(lambda: upsample2x_fwd(xb))
         t_pb = time_ms(lambda: upsample2x_fwd_plain(xb))
+        x_nchw = x.permute(0, 3, 1, 2)  # the library call: F.interpolate alone
+        t_l = time_ms(lambda: F.interpolate(x_nchw, scale_factor=2, mode="bilinear",
+                                            align_corners=False))
         line("k1", x=f"{STAGE_BATCH}x{h}x{h}x{c}", f32_max_abs_err=f"{err:.3e}",
              bf16_max_ulps=f"{ulps:.3f}", ms=f"{t_k:.4f}", plain_ms=f"{t_p:.4f}",
-             bf16_ms=f"{t_kb:.4f}", bf16_plain_ms=f"{t_pb:.4f}")
+             library_ms=f"{t_l:.4f}", bf16_ms=f"{t_kb:.4f}", bf16_plain_ms=f"{t_pb:.4f}")
         require(err <= K1_F32_ABS_TOL, f"K1 {h}x{c}: fp32 err {err}: not torch's bits")
         require(ulps <= 1.0, f"K1 {h}x{c}: bf16 off by {ulps} ulp")
         worst_abs, ms, plain_ms = max(worst_abs, err), ms + t_k, plain_ms + t_p
-    return worst_abs, ms, plain_ms
+        lib_ms += t_l
+        flop += 9.0 * got.numel()  # two FMAs and a multiply per axis pair of taps
+        moved += nbytes(x, got)
+    return dict(max_abs_err=worst_abs, ms=ms, plain_ms=plain_ms, **bound(flop, moved),
+                library_ms=lib_ms)
 
 
 def phase_k1_bwd(model, dev):
     gen = torch.Generator().manual_seed(SEED + 4)
-    worst_abs, ms, plain_ms = 0.0, 0.0, 0.0
+    worst_abs, ms, plain_ms, lib_ms, flop, moved = 0.0, 0.0, 0.0, 0.0, 0.0, 0
     for h, c in upsample_shapes(model.base_width):
         g = torch.randn((STAGE_BATCH, 2 * h, 2 * h, c), generator=gen).to(dev)
         got, want = upsample2x_bwd(g), upsample2x_bwd_plain(g)
@@ -277,16 +331,23 @@ def phase_k1_bwd(model, dev):
         t_p = time_ms(lambda: upsample2x_bwd_plain(g))
         t_kb = time_ms(lambda: upsample2x_bwd(gb))
         t_pb = time_ms(lambda: upsample2x_bwd_plain(gb))
+        g_nchw, size = g.permute(0, 3, 1, 2), [STAGE_BATCH, c, h, h]
+        t_l = time_ms(lambda: torch.ops.aten.upsample_bilinear2d_backward(
+            g_nchw, [2 * h, 2 * h], size, False, 2.0, 2.0))
         line("k1_bwd", g=f"{STAGE_BATCH}x{2 * h}x{2 * h}x{c}", f32_max_abs_err=f"{err:.3e}",
              rel=f"{err / max(scale, 1e-30):.3e}", bf16_max_ulps=f"{ulps:.3f}",
              adjoint_rel=f"{adj:.3e}", ms=f"{t_k:.4f}", plain_ms=f"{t_p:.4f}",
-             bf16_ms=f"{t_kb:.4f}", bf16_plain_ms=f"{t_pb:.4f}")
+             library_ms=f"{t_l:.4f}", bf16_ms=f"{t_kb:.4f}", bf16_plain_ms=f"{t_pb:.4f}")
         require(got.shape == (STAGE_BATCH, h, h, c), f"K1 bwd {h}x{c}: shape {tuple(got.shape)}")
         require(err <= K1_BWD_REL_TOL * scale, f"K1 bwd {h}x{c}: fp32 err {err} > 1e-6 * {scale}")
         require(ulps <= 1.0, f"K1 bwd {h}x{c}: bf16 off by {ulps} ulp")
         require(adj <= ADJOINT_TOL, f"K1 bwd {h}x{c}: not the adjoint of K1 fwd ({adj})")
         worst_abs, ms, plain_ms = max(worst_abs, err), ms + t_k, plain_ms + t_p
-    return worst_abs, ms, plain_ms
+        lib_ms += t_l
+        flop += 40.0 * got.numel()  # 20 FMAs a dx value: 4 rows of 4 taps, then the rows
+        moved += nbytes(g, got)
+    return dict(max_abs_err=worst_abs, ms=ms, plain_ms=plain_ms, **bound(flop, moved),
+                library_ms=lib_ms)
 
 
 def dsm_tiles(n: int, size: int, seed: int):
@@ -385,6 +446,7 @@ def phase_slice(model, dev, counters):
     require(launches["upsample2x_fwd"] == 7 * forwards,
             f"slice: K1 launched {launches['upsample2x_fwd']} times in {forwards} forwards")
     require(launches["upsample2x_bwd"] == 0, "slice: K1 bwd launched in inference")
+    require(launches["fused_decoder_tail"] == 0, "slice: K3 launched with fused_tail off")
     return launches
 
 
@@ -411,7 +473,7 @@ def phase_files(model, dev, counters):
         sizes = {Image.open(p).size for p in [one, *outs]}
         line("files", evaluate_launches=one_launches, tiles=N_FILES, written=len(outs),
              sizes=sorted(sizes), seconds=f"{seconds:.2f}")
-        require(one_launches == (14, 7, 0), f"files: evaluate launched {one_launches}")
+        require(one_launches == (14, 7, 0, 0), f"files: evaluate launched {one_launches}")
         require(next(model.parameters()).device == dev, "files: evaluate moved the model")
         require(len(outs) == N_FILES, f"files: wrote {len(outs)} of {N_FILES}")
         require(sizes == {(OUTPUT_SIZE, OUTPUT_SIZE)}, f"files: sizes {sizes}")
@@ -534,7 +596,8 @@ def g_objective_grads(state, vgg, batch, snapshot, upsample=None):
 
     forward = None
     if upsample is not None:
-        forward = lambda x, m: G._run(x, m, fused_pconv_eval_plain, upsample)  # noqa: E731
+        forward = lambda x, m: G._run(  # noqa: E731
+            x, m, fused_pconv_eval_plain, upsample, fused_decoder_tail_plain)
     hook = G.dec2.register_forward_hook(capture)
     try:
         total, *_ = generator_objective(state, batch, vgg, TrainingConfig().loss_config(),
@@ -577,12 +640,204 @@ def phase_train_grad(dev, counters):
          **{f"{k}_block_rel_l2_max": f"{v:.3e}" for k, v in worst.items()})
     for n in plain[1]:
         print(f"  {n}: " + " ".join(f"{k}={b[n]:.3e}" for k, b in blocks.items()), flush=True)
-    require(kernel_launches == [0, 7, 7], f"train_grad: kernel path launched {kernel_launches}")
+    require(kernel_launches == [0, 7, 7, 0], f"train_grad: kernel path launched {kernel_launches}")
     require(up["kernel"] <= GRAD_TOL, f"train_grad: upsample-input gradient off by {up['kernel']}")
     require(worst["kernel"] <= GRAD_TOL, f"train_grad: a block's gradient off by {worst['kernel']}")
     require(up["tf32"] > GRAD_TOL and worst["tf32"] > GRAD_TOL,
             f"train_grad: the checks pass the TF32 plain path ({up['tf32']}, "
             f"{worst['tf32']}): they see nothing")
+
+
+def dec2_outputs(model, x, m):
+    """dec2's (features, mask) in the model's own eval forward (the kernel path)."""
+    out = []
+    hook = model.dec2.register_forward_hook(lambda mod, args, res: out.append(res))
+    try:
+        with torch.inference_mode():
+            model(x, m)
+    finally:
+        hook.remove()
+    return out[0]
+
+
+def spread_tail_weights(c: int, dev, seed: int):
+    """Tail weights drawn as tests/test_tail_kernel.py draws them: on the
+    model's dec2 features the logits spread over units, so an error in the
+    tail reaches the composite (with random model weights the holes sit
+    near sigmoid(0))."""
+    rng = np.random.default_rng(seed)
+    n = lambda s, *shape: rng.normal(0, s, shape).astype(np.float32)  # noqa: E731
+    u = lambda *shape: rng.random(shape, dtype=np.float32) + 0.5  # noqa: E731
+    w = [n(0.05, 3, 3, c, c), n(0.01, c), u(c), n(0.01, c), n(0.01, c), u(c),
+         n(0.05, 3, 3, c, 1), np.array([0.01], np.float32)]
+    return [torch.from_numpy(a).to(dev) for a in w]
+
+
+def phase_k3(model, dev):
+    imgs, masks = dsm_tiles(STAGE_BATCH, SIZE, SEED + 10)
+    x = torch.from_numpy(imgs.astype(np.float32) / 255.0).to(dev)
+    m = torch.from_numpy((masks > 0).astype(np.float32)).to(dev)
+    xin = x * m
+    d, dm = dec2_outputs(model, xin, m)
+    conv, bn, fin = model.dec1.input_conv, model.dec1.bn, model.final
+    c = d.shape[-1]
+    with torch.inference_mode():
+        own = [conv.weight.permute(2, 3, 1, 0), conv.bias, bn.weight, bn.bias, bn.running_mean,
+               bn.running_var, fin.weight.permute(2, 3, 1, 0), fin.bias]
+        own = [t.detach().contiguous() for t in own]
+    spread = spread_tail_weights(c, dev, SEED + 12)
+    k_skip = torch.from_numpy(
+        np.random.default_rng(SEED + 13).normal(0, 0.05, (3, 3, 1, c)).astype(np.float32)).to(dev)
+
+    # the random model's dec2 features are small (each layer's default init
+    # shrinks them); the spread weights see them at unit RMS, the scale of
+    # the JAX tests' uniform draws, and with xm = 0, so that every pixel is
+    # the tail's own output and none is copied from x exactly
+    d_unit = d / d.pow(2).mean().sqrt()
+    no_mask = torch.zeros_like(m)
+
+    def args(w, skip):
+        if w is own:
+            return (d, dm, xin, m, w[0], k_skip if skip else None, *w[1:], bn.eps)
+        return (d_unit, dm, xin, no_mask, w[0], k_skip if skip else None, *w[1:], bn.eps)
+    errs = {}
+    with torch.inference_mode():
+        for wname, w in (("model", own), ("spread", spread)):
+            for skip in (False, True):
+                a = args(w, skip)
+                got = fused_decoder_tail(*a)
+                want = fused_decoder_tail_plain(*a)
+                torch.cuda.synchronize()
+                key = f"{wname}_{'skip' if skip else 'one_input'}"
+                hole = want[a[3] == 0].double()  # sigmoid(logit) where xm = 0
+                errs[key] = (nrmse(got, want), (got - want).abs().max().item(),
+                             torch.log(hole / (1 - hole)).std().item())
+                require(got.shape == (STAGE_BATCH, SIZE, SIZE, 1) and torch.isfinite(got).all().item(),
+                        f"k3 {key}: shape {tuple(got.shape)} or non-finite output")
+                if wname == "spread":
+                    torch.backends.cudnn.allow_tf32 = True
+                    try:
+                        tf32 = fused_decoder_tail_plain(*a)
+                    finally:
+                        torch.backends.cudnn.allow_tf32 = False
+                    errs[key + "_tf32"] = (nrmse(tf32, want), (tf32 - want).abs().max().item(), 0.0)
+
+        a = args(own, False)
+        t_k = time_ms(lambda: fused_decoder_tail(*a))
+        t_p = time_ms(lambda: fused_decoder_tail_plain(*a))
+        t_u = time_ms(lambda: model.tail_forward(d, dm, xin, m, fused_pconv_eval, upsample2x_bilinear))
+        unfused = model.tail_forward(d, dm, xin, m, fused_pconv_eval, upsample2x_bilinear)
+        fused = fused_decoder_tail(*a)
+        vs_unfused = nrmse(fused, unfused)
+    hw = 4 * d.shape[1] * d.shape[2]
+    flop = 2.0 * STAGE_BATCH * hw * c * 9 * (c + 1)  # dec1, and the final conv
+    # library_ms: the unfused kernel path the fused tail replaces; no one
+    # PyTorch call computes the tail
+    fig = dict(ms=t_k, plain_ms=t_p, library_ms=t_u,
+               **bound(flop, nbytes(d, dm, xin, m, fused, *own)))
+    for key, (e, mx, logit_std) in errs.items():
+        line("k3", form=key, nrmse=f"{e:.3e}", max_abs_err=f"{mx:.3e}",
+             hole_logit_std=f"{logit_std:.4f}" if logit_std else "-")
+    line("k3", d="x".join(map(str, d.shape)), ms=f"{t_k:.4f}", plain_ms=f"{t_p:.4f}",
+         unfused_kernel_path_ms=f"{t_u:.4f}", bound_ms=f"{fig['bound_ms']:.4f}",
+         bound_by=fig["bound_by"], gflop=f"{flop / 1e9:.2f}",
+         tflops=f"{flop / t_k / 1e9:.2f}", nrmse_vs_unfused=f"{vs_unfused:.3e}")
+    for key, (e, _, _) in errs.items():
+        if key.endswith("_tf32"):
+            require(e > K3_NRMSE_TOL,
+                    f"k3: the bound passes the TF32 plain tail ({key}: {e}): it sees nothing")
+        else:
+            require(e <= K3_NRMSE_TOL, f"k3 {key}: NRMSE {e} > {K3_NRMSE_TOL}")
+    require(vs_unfused <= K3_NRMSE_TOL, f"k3: {vs_unfused} from the unfused kernel path")
+    fig["max_abs_err"] = max(mx for k, (_, mx, _) in errs.items() if not k.endswith("_tf32"))
+    return fig
+
+
+def http_get(url: str, token=None):
+    req = urllib.request.Request(url, headers={"Authorization": f"Bearer {token}"} if token else {})
+    try:
+        with urllib.request.urlopen(req, timeout=60) as resp:
+            return resp.status, resp.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+
+
+def phase_serve(dev, counters):
+    from PIL import Image
+
+    n = SERVE_REQUESTS + SERVE_BATCH_ITEMS
+    imgs, masks = dsm_tiles(n, SIZE, SEED + 11)
+    service = InpaintService(size=SIZE, out_size=OUTPUT_SIZE, max_batch=SERVE_MAX_BATCH,
+                             base_width=WIDTH, device=dev, fused_tail=True)
+    service.warmup()
+    srv = make_server(service, "127.0.0.1", 0, auth_secret=SERVE_SECRET)
+    srv.daemon_threads = False  # server_close joins in-flight handlers: the drain
+    serving = threading.Thread(target=srv.serve_forever)
+    serving.start()
+    url = f"http://127.0.0.1:{srv.server_port}"
+    client = InpaintClient(url, auth_secret=SERVE_SECRET)
+    outs, lat = [None] * n, [0.0] * SERVE_REQUESTS
+    try:
+        health = client.healthz()
+
+        def one(i):
+            t = time.perf_counter()
+            outs[i] = client.inpaint(imgs[i], masks[i])
+            lat[i] = (time.perf_counter() - t) * 1e3
+
+        batches0 = service.batcher.snapshot()["batches"]
+        for fn in counters:
+            fn.launches = 0
+        t0 = time.perf_counter()
+        workers = [threading.Thread(target=one, args=(i,)) for i in range(SERVE_REQUESTS)]
+        for w in workers:
+            w.start()
+        for w in workers:
+            w.join()
+        seconds = time.perf_counter() - t0
+        outs[SERVE_REQUESTS:] = client.inpaint_batch(
+            [(imgs[i], masks[i]) for i in range(SERVE_REQUESTS, n)])
+        launches = {fn.__name__: fn.launches for fn in counters}
+        forwards = service.batcher.snapshot()["batches"] - batches0
+        stats = client.stats()
+        token = jwt_auth.encode({"sub": "chip-smoke"}, SERVE_SECRET, expires_in=300)
+        metrics_code, metrics = http_get(f"{url}/metrics", token)
+        no_token = http_get(f"{url}/stats")[0]
+    finally:
+        srv.shutdown()
+        serving.join(60)
+        srv.server_close()
+    # the reference: the same tiles through BatchedInpainter with the unfused
+    # tail, resized to the output contract as the server resizes
+    service.generator.fused_tail = False
+    ref = BatchedInpainter(service.generator, dev, chunk=CHUNK, quantize_uint8=True)(imgs, masks)
+    ref = [np.asarray(Image.fromarray(r[..., 0]).resize((OUTPUT_SIZE, OUTPUT_SIZE), Image.BILINEAR))
+           for r in ref]
+    diff = max(int(np.abs(o.astype(np.int16) - r.astype(np.int16)).max()) for o, r in zip(outs, ref))
+    kind = torch.cuda.get_device_name(0)
+    line("serve", requests=SERVE_REQUESTS, batch_items=SERVE_BATCH_ITEMS, forwards=forwards,
+         mean_batch=f"{stats['mean_batch']:.2f}", u8_max_diff_vs_unfused=diff,
+         k3_launches=launches["fused_decoder_tail"], k2_launches=launches["fused_pconv_eval"],
+         k1_launches=launches["upsample2x_fwd"],
+         p50_ms=f"{np.percentile(lat, 50):.2f}", p95_ms=f"{np.percentile(lat, 95):.2f}",
+         server_p50_ms=stats["latency_p50_ms"], server_p95_ms=stats["latency_p95_ms"],
+         requests_per_s=f"{SERVE_REQUESTS / seconds:.2f}", health_devices=health["devices"],
+         metrics_code=metrics_code, no_token_code=no_token)
+    require(all(o is not None and o.shape == (OUTPUT_SIZE, OUTPUT_SIZE) and o.dtype == np.uint8
+                for o in outs), "serve: a response is not a 500x500 grey PNG")
+    require(diff <= SLICE_U8_TOL, f"serve: {diff} grey levels from the unfused path")
+    require(health["status"] == "ok" and kind in health["devices"] and health["fused_tail"],
+            f"serve: healthz {health}")
+    require(stats["requests"] == n and stats["errors"] == 0 and stats["mean_batch"] > 1,
+            f"serve: stats {stats}: requests were not coalesced")
+    require(metrics_code == 200 and f"terra_gan_tpu_requests_total {n}" in metrics,
+            f"serve: /metrics {metrics_code} {metrics[:200]}")
+    require(no_token == 401, f"serve: a request without a token got {no_token}")
+    want = {"fused_decoder_tail": 1, "fused_pconv_eval": 13, "upsample2x_fwd": 6,
+            "upsample2x_bwd": 0}
+    require(all(launches[k] == v * forwards for k, v in want.items()),
+            f"serve: launches {launches} in {forwards} forwards, want {want} each")
+    return launches
 
 
 def main() -> None:
@@ -591,35 +846,31 @@ def main() -> None:
 
     dev = torch.device("cuda", 0)
     model = init_generator(WIDTH, torch.Generator().manual_seed(SEED), dev)
-    k2_err, k2_ms, k2_plain = phase_k2(model, dev)
-    k1_err, k1_ms, k1_plain = phase_k1(model, dev)
-    k1b_err, k1b_ms, k1b_plain = phase_k1_bwd(model, dev)
-    counters = (fused_pconv_eval, upsample2x_fwd, upsample2x_bwd)
+    figures = {"fused_pconv_eval": phase_k2(model, dev), "upsample2x_fwd": phase_k1(model, dev),
+               "upsample2x_bwd": phase_k1_bwd(model, dev)}
+    counters = (fused_pconv_eval, upsample2x_fwd, upsample2x_bwd, fused_decoder_tail)
     launches = phase_slice(model, dev, counters)
     phase_files(model, dev, counters)
+    figures["fused_decoder_tail"] = phase_k3(model, dev)
     del model
-    train_launches = phase_train(dev, counters)
+    # launches: the main paths' runs, the inference slice, the train epoch and serving
+    runs = [phase_train(dev, counters)]
     phase_train_grad(dev, counters)
-    # launches: the main paths' runs, the inference slice and the train epoch
-    for name, n in train_launches.items():
-        launches[name] += n
+    runs.append(phase_serve(dev, counters))
+    for run in runs:
+        for name, n in run.items():
+            launches[name] += n
 
+    sources = {
+        "fused_pconv_eval": ("pconv_eval.cu", "terra_gan_tpu/ops/pallas/pconv_kernel.py:297"),
+        "upsample2x_fwd": ("upsample2x.cu", "terra_gan_tpu/ops/pallas/upsample_kernel.py:198"),
+        "upsample2x_bwd": ("upsample2x.cu", "terra_gan_tpu/ops/pallas/upsample_kernel.py:204"),
+        "fused_decoder_tail": ("decoder_tail.cu", "terra_gan_tpu/ops/pallas/tail_kernel.py:226"),
+    }
     kernels = [
-        {"name": "fused_pconv_eval", "route": "cuda",
-         "source": "terra_gan_tpu_torch/csrc/pconv_eval.cu",
-         "replaces": "terra_gan_tpu/ops/pallas/pconv_kernel.py:297",
-         "launches": launches["fused_pconv_eval"], "max_abs_err": k2_err,
-         "ms": k2_ms, "plain_ms": k2_plain},
-        {"name": "upsample2x_fwd", "route": "cuda",
-         "source": "terra_gan_tpu_torch/csrc/upsample2x.cu",
-         "replaces": "terra_gan_tpu/ops/pallas/upsample_kernel.py:198",
-         "launches": launches["upsample2x_fwd"], "max_abs_err": k1_err,
-         "ms": k1_ms, "plain_ms": k1_plain},
-        {"name": "upsample2x_bwd", "route": "cuda",
-         "source": "terra_gan_tpu_torch/csrc/upsample2x.cu",
-         "replaces": "terra_gan_tpu/ops/pallas/upsample_kernel.py:204",
-         "launches": launches["upsample2x_bwd"], "max_abs_err": k1b_err,
-         "ms": k1b_ms, "plain_ms": k1b_plain},
+        {"name": name, "route": "cuda", "source": f"terra_gan_tpu_torch/csrc/{src}",
+         "replaces": replaces, "launches": launches[name], **figures[name]}
+        for name, (src, replaces) in sources.items()
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -10,6 +10,14 @@ Architecture contract (reference: mvp_gan/src/models/generator.py):
     PConv over the upsampled features alone, a 64->1 conv, a sigmoid and
     the composite ``out * (1 - mask) + x * mask``.
 
+With ``fused_tail`` set, the eval forward runs the tail as one
+``fused_decoder_tail(..., k_skip=None)`` call (K3): it replaces the
+last upsample, dec1's stage, the final conv, the sigmoid and the
+composite. It needs the tail to be an exact 2x (an even input size) and
+raises otherwise. Train mode ignores the flag (K3 has no backward), and
+it is off by default, as in the JAX package, whose model never calls
+its tail kernel.
+
 In eval mode every PConv stage is one ``fused_pconv_eval`` call (K2);
 in train mode a stage is ``ops.pconv.partial_conv2d_split``, then
 ``nn.BatchNorm2d`` on the batch statistics (torch's own train-mode
@@ -40,6 +48,7 @@ from ..ops.cuda.pconv_kernel import (
     fused_pconv_eval,
     fused_pconv_eval_plain,
 )
+from ..ops.cuda.tail_kernel import fused_decoder_tail, fused_decoder_tail_plain
 from ..ops.cuda.upsample_kernel import upsample2x_fwd_plain
 from ..ops.pconv import partial_conv2d_split
 from ..ops.resize import pad_to_match, upsample2x_bilinear, upsample2x_nearest
@@ -107,10 +116,11 @@ class PConvUNet(nn.Module):
     the composited image, same shape as x.
     """
 
-    def __init__(self, base_width: int = 64):
+    def __init__(self, base_width: int = 64, fused_tail: bool = False):
         super().__init__()
         w = base_width
         self.base_width = w
+        self.fused_tail = fused_tail
         enc = [(1, w, 7), (w, 2 * w, 5), (2 * w, 4 * w, 5), (4 * w, 8 * w, 3),
                (8 * w, 8 * w, 3), (8 * w, 8 * w, 3), (8 * w, 8 * w, 3)]
         for i, (cin, cout, k) in enumerate(enc):
@@ -124,7 +134,7 @@ class PConvUNet(nn.Module):
         self.final = nn.Conv2d(w, 1, 3, padding=1)
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-        return self._run(x, mask, fused_pconv_eval, upsample2x_bilinear)
+        return self._run(x, mask, fused_pconv_eval, upsample2x_bilinear, fused_decoder_tail)
 
     def forward_plain(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         """The same forward through the kernels' plain versions, on any device,
@@ -132,9 +142,11 @@ class PConvUNet(nn.Module):
 
         It is the reference the kernel path is held against on a card.
         """
-        return self._run(x, mask, fused_pconv_eval_plain, upsample2x_fwd_plain)
+        return self._run(
+            x, mask, fused_pconv_eval_plain, upsample2x_fwd_plain, fused_decoder_tail_plain
+        )
 
-    def _run(self, x, mask, stage: StageFn, upsample) -> torch.Tensor:
+    def _run(self, x, mask, stage: StageFn, upsample, tail) -> torch.Tensor:
         feats, masks = [x], [mask]
         h, m = x, mask
         for i in range(1, 8):
@@ -150,6 +162,13 @@ class PConvUNet(nn.Module):
                 up_f, torch.maximum(up_m, skip_m), skip=skip_f, stage=stage
             )
 
+        if self.fused_tail and not self.training:
+            return self.fused_tail_forward(h, m, x, mask, tail)
+        return self.tail_forward(h, m, x, mask, stage, upsample)
+
+    def tail_forward(self, h, m, x, mask, stage: StageFn, upsample) -> torch.Tensor:
+        """The unfused tail from dec2's (features, mask): upsample, dec1's
+        stage, the final conv, the sigmoid and the composite."""
         h = pad_to_match(upsample(h), x.shape[1], x.shape[2])
         m = pad_to_match(upsample2x_nearest(m), mask.shape[1], mask.shape[2])
         h, _ = self.dec1(h, torch.maximum(m, mask), stage=stage)
@@ -157,3 +176,13 @@ class PConvUNet(nn.Module):
         out = F.conv2d(h.permute(0, 3, 1, 2), self.final.weight, self.final.bias, padding=1)
         out = torch.sigmoid(out).permute(0, 2, 3, 1)
         return out * (1.0 - mask) + x * mask
+
+    def fused_tail_forward(self, h, m, x, mask, tail) -> torch.Tensor:
+        """The same tail as one ``tail`` call (K3 or its plain version),
+        in its one-input form, with dec1's and the final conv's weights."""
+        conv, bn = self.dec1.input_conv, self.dec1.bn
+        return tail(
+            h, m, x, mask, conv.weight.permute(2, 3, 1, 0), None, conv.bias,
+            bn.weight, bn.bias, bn.running_mean, bn.running_var,
+            self.final.weight.permute(2, 3, 1, 0), self.final.bias, bn.eps,
+        )

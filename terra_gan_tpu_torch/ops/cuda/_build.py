@@ -10,7 +10,7 @@ keyed by a hash of the sources and the flags, so an edited source builds
 anew and an unchanged one is reused within the checkout.
 
 No fast math: the PConv renormalisation divides and gates exactly as the
-reference does.
+reference does, and K3's sigmoid takes the accurate ``expf``.
 """
 
 from __future__ import annotations
@@ -114,6 +114,8 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.tg_upsample2x_fwd.argtypes = [_P, _P] + [_I] * 5 + [_P]
     lib.tg_upsample2x_bwd.restype = _I
     lib.tg_upsample2x_bwd.argtypes = [_P, _P] + [_I] * 5 + [_P]
+    lib.tg_decoder_tail_f32.restype = _I
+    lib.tg_decoder_tail_f32.argtypes = [_P] * 12 + [_I] * 4 + [_P]
 
 
 def load_library() -> ctypes.CDLL:

@@ -27,6 +27,7 @@ from terra_gan_tpu_torch.ops.cuda.upsample_kernel import (
     upsample2x_fwd,
     upsample2x_fwd_plain,
 )
+from terra_gan_tpu_torch.ops.cuda.tail_kernel import fused_decoder_tail, fused_decoder_tail_plain
 from terra_gan_tpu_torch.evaluation.inference import OUTPUT_SIZE, evaluate
 from terra_gan_tpu_torch.parallel.infer import BatchedInpainter
 from terra_gan_tpu_torch.training.state import GANTrainState
@@ -248,3 +249,94 @@ def test_train_step_kernel_path_matches_plain_path(card):
         for (n, a), b in zip(mod.state_dict().items(), ref.state_dict().values()):
             if a.is_floating_point():
                 assert (a - b).abs().max().item() < 2.2 * lr, n
+
+
+def tail_args(seed, b, h, w, c, dev, skip=True, xm_mode="rand"):
+    """K3's arguments drawn as tests/test_tail_kernel.py draws them: the
+    logits spread over units, so an error in the tail reaches the output."""
+    rng = np.random.default_rng(seed)
+    f = lambda *shape: rng.random(shape, dtype=np.float32)  # noqa: E731
+    n = lambda s, *shape: rng.normal(0, s, shape).astype(np.float32)  # noqa: E731
+    xm = {"rand": (f(b, 2 * h, 2 * w, 1) > 0.25).astype(np.float32),
+          "zeros": np.zeros((b, 2 * h, 2 * w, 1), np.float32),
+          "ones": np.ones((b, 2 * h, 2 * w, 1), np.float32)}[xm_mode]
+    args = [f(b, h, w, c), (f(b, h, w, 1) > 0.1).astype(np.float32), f(b, 2 * h, 2 * w, 1), xm,
+            n(0.05, 3, 3, c, c), n(0.05, 3, 3, 1, c) if skip else None, n(0.01, c),
+            f(c) + 0.5, n(0.01, c), n(0.01, c), f(c) + 0.5, n(0.05, 3, 3, c, 1),
+            np.array([0.01], np.float32)]
+    return [None if a is None else torch.from_numpy(a).to(dev) for a in args]
+
+
+@pytest.mark.parametrize("b,h,w,c,skip,xm_mode", [
+    (2, 16, 16, 8, True, "rand"),     # the JAX tests' size
+    (2, 16, 16, 8, False, "zeros"),   # the model's one-input form
+    (1, 9, 13, 16, True, "rand"),     # ragged 16x16 output tiles
+    (3, 8, 8, 4, False, "ones"),
+    (1, 32, 24, 64, True, "rand"),    # the model's width
+    (1, 256, 256, 64, False, "rand"),  # the model's shape
+])
+def test_tail_kernel_matches_plain(card, b, h, w, c, skip, xm_mode):
+    args = tail_args(b + h + c, b, h, w, c, card, skip, xm_mode)
+    before = fused_decoder_tail.launches
+    got = fused_decoder_tail(*args)
+    want = fused_decoder_tail_plain(*args)
+    torch.cuda.synchronize()
+    assert fused_decoder_tail.launches == before + 1
+    assert got.shape == want.shape == (b, 2 * h, 2 * w, 1)
+    assert (got - want).abs().max().item() <= ATOL  # fp32 sums in another order
+    assert nrmse(got.cpu(), want.cpu()) <= NRMSE_TOL
+    if xm_mode == "ones":
+        assert torch.equal(got, args[2])
+
+
+def test_tail_kernel_raises_on_what_it_does_not_take(card):
+    args = tail_args(0, 1, 8, 8, 8, card)
+    grad = [a.clone().requires_grad_(True) if i == 0 else a for i, a in enumerate(args)]
+    with pytest.raises(RuntimeError, match="records no gradient"):
+        fused_decoder_tail(*grad)
+    for dtype in (torch.float64, torch.bfloat16):
+        with pytest.raises(ValueError, match="float32"):
+            fused_decoder_tail(args[0].to(dtype), *args[1:])
+    strided = args[0].permute(0, 2, 1, 3)  # the same shape, not contiguous
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_decoder_tail(strided, *args[1:])
+    odd = args[2][:, :15]  # not 2H
+    with pytest.raises(ValueError, match="exact 2x"):
+        fused_decoder_tail(args[0], args[1], odd, args[3][:, :15], *args[4:])
+    with pytest.raises(ValueError, match="multiple of 4"):
+        fused_decoder_tail(*tail_args(0, 1, 8, 8, 6, card))
+    with torch.no_grad():  # the eval forward's own mode
+        fused_decoder_tail(*grad)
+
+
+def test_tail_kernel_counts_no_launch_for_an_empty_batch(card):
+    args = tail_args(1, 1, 8, 8, 8, card)
+    empty = [a[:0] if i < 4 else a for i, a in enumerate(args)]
+    before = fused_decoder_tail.launches
+    assert fused_decoder_tail(*empty).shape == (0, 16, 16, 1)
+    assert fused_decoder_tail.launches == before
+    fused_decoder_tail(*args)
+    assert fused_decoder_tail.launches == before + 1
+
+
+def test_model_fused_tail_matches_the_unfused_path(card):
+    model = init_generator(16, torch.Generator().manual_seed(5), card)
+    g = np.random.default_rng(6)
+    x = torch.from_numpy(g.random((2, 128, 128, 1), dtype=np.float32)).to(card)
+    m = torch.from_numpy((g.random((2, 128, 128, 1)) > 0.3).astype(np.float32)).to(card)
+    with torch.inference_mode():
+        want = model(x * m, m).cpu().numpy()
+        plain = model.forward_plain(x * m, m).cpu().numpy()
+        model.fused_tail = True
+        counts = [f.launches for f in (fused_decoder_tail, fused_pconv_eval, upsample2x_fwd)]
+        got = model(x * m, m).cpu().numpy()
+        counts = [f.launches - c for f, c in
+                  zip((fused_decoder_tail, fused_pconv_eval, upsample2x_fwd), counts)]
+        fused_plain = model.forward_plain(x * m, m).cpu().numpy()
+    assert counts == [1, 13, 6]
+    assert nrmse(got, want) <= NRMSE_TOL
+    assert nrmse(got, fused_plain) <= NRMSE_TOL
+    np.testing.assert_array_equal(fused_plain, plain)  # the same plain ops
+    xo, mo = (x * m)[:, :127, :127].contiguous(), m[:, :127, :127].contiguous()
+    with pytest.raises(ValueError, match="exact 2x"), torch.inference_mode():
+        model(xo, mo)  # an odd size: enc1 rounds up, the tail is not 2x

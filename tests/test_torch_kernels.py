@@ -28,6 +28,7 @@ from terra_gan_tpu_torch.ops.cuda.pconv_kernel import (
     fused_pconv_eval,
     fused_pconv_eval_plain,
 )
+from terra_gan_tpu_torch.ops.cuda.tail_kernel import fused_decoder_tail
 from terra_gan_tpu_torch.ops.cuda.upsample_kernel import (
     Upsample2x,
     upsample2x_bwd,
@@ -179,6 +180,12 @@ def test_other_devices_raise_instead_of_falling_back():
             meta(1, 4, 4, 8), meta(1, 4, 4, 1), meta(8, 8, 3, 3), meta(8),
             1, 1, meta(8), meta(8),
         )
+    with pytest.raises(ValueError, match="no kernel"):
+        fused_decoder_tail(
+            meta(1, 4, 4, 8), meta(1, 4, 4, 1), meta(1, 8, 8, 1), meta(1, 8, 8, 1),
+            meta(3, 3, 8, 8), None, meta(8), meta(8), meta(8), meta(8), meta(8),
+            meta(3, 3, 8, 1), meta(1),
+        )
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):
@@ -191,7 +198,7 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
 
 def test_build_sources_and_key():
     srcs, deps = _build._sources()
-    assert {p.name for p in srcs} == {"pconv_eval.cu", "upsample2x.cu"}
+    assert {p.name for p in srcs} == {"decoder_tail.cu", "pconv_eval.cu", "upsample2x.cu"}
     key = _build._digest(srcs + deps)
     assert len(key) == 16 and key == _build._digest(srcs + deps)
     assert "--use_fast_math" not in _build.NVCC_FLAGS
