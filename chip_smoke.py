@@ -13,18 +13,18 @@ Phases, one line of figures each (any failure raises and exits nonzero):
      shapes, fp32 and bf16, and the adjointness <U x, g> = <x, U^T g>;
   6. the slice: 16 synthetic uint8 DSM-like tiles through
      BatchedInpainter(chunk=8) with seeded random weights, held against
-     the same model's plain path on the composite and on dec1's
-     features, with the kernels' launch counts; the same feature check
-     must fail the plain path run in TF32, which shows it can see an
-     error of that size;
+     the same model's plain path on the composite and on dec2's
+     features, with the kernels' launch counts (13 K2, 6 K1 and 1 K3 a
+     forward); the same feature check must fail the plain path run in
+     TF32, which shows it can see an error of that size;
   7. files: evaluate on one PNG tile, then inpaint_directory end to end
      on a directory of 512^2 PNGs;
   8. train: the port's train() for one epoch over 24 PNG tiles at batch
      8 (3 steps of G+D with the full loss, VGG perceptual included) and
      one validation batch of 8, with seeded G, D and VGG, fp32, TF32
-     off; the launch counts (K1 forward and backward 7 per step, K2 only
-     in validation), the best checkpoint reloaded strictly into a fresh
-     state, ms per step, samples/s and peak memory;
+     off; the launch counts (K1 forward and backward 7 per step, K2 and
+     K3 only in validation), the best checkpoint reloaded strictly into
+     a fresh state, ms per step, samples/s and peak memory;
   9. train_grad: one batch of 8 through the G objective's forward and
      backward, once through K1 and once through torch's own upsample,
      cuDNN deterministic: the gradient at dec1's upsample input and the
@@ -39,11 +39,11 @@ Phases, one line of figures each (any failure raises and exits nonzero):
      K3, its plain version and the
      unfused kernel path (K1 + K2 dec1 + cuDNN's final conv + composite);
  11. serve: the port's HTTP server in a thread on 127.0.0.1 with the
-     full-width 512^2 model, fused_tail on, max_batch 8 and an auth
-     secret; through the port's client 16 concurrent /inpaint requests
-     and one /inpaint_batch of 4, /healthz, /stats, /metrics and a 401;
-     every response within 1 grey level of BatchedInpainter's output
-     with the unfused tail, and 1 K3, 13 K2 and 6 K1 launches a forward.
+     full-width 512^2 model, max_batch 8 and an auth secret; through
+     the port's client 16 concurrent /inpaint requests and one
+     /inpaint_batch of 4, /healthz, /stats, /metrics and a 401; every
+     response within 1 grey level of BatchedInpainter's output with the
+     unfused tail, and 1 K3, 13 K2 and 6 K1 launches a forward.
 Then a JSON line of per-kernel figures (each with its bound: the larger
 of its bytes over 3.35 TB/s and its operations over the 67 TFLOP/s of
 fp32 outside the tensor cores, from this run's shapes), and last
@@ -108,9 +108,10 @@ K2_REL_TOL = 1e-4      # of max|plain|: fp32 sums taken in another order
 # torch's bits (the train_grad phase's tight bound rests on that)
 K1_F32_ABS_TOL = 0.0
 SLICE_NRMSE_TOL = 1e-5  # on the composite
-# on dec1's features: fp32 sums in another order read ~3e-8 there, the
-# plain path in TF32 ~3e-5 (the phase checks that it still fails)
-DEC1_NRMSE_TOL = 1e-6
+# on dec2's features, the last the eval forward writes before K3: fp32
+# sums in another order read far below it, the plain path in TF32 above
+# it (the phase checks that it still fails)
+FEAT_NRMSE_TOL = 1e-6
 SLICE_U8_TOL = 1       # grey levels: a float at a rounding boundary may flip
 REPS = 10
 K1_BWD_REL_TOL = 1e-6  # of max|plain|: fp32 taps in another order, atomics in torch's
@@ -373,10 +374,10 @@ def dsm_tiles(n: int, size: int, seed: int):
 
 
 @contextlib.contextmanager
-def dec1_features(model):
-    """Collects dec1's output features, one tensor per forward, while open."""
+def dec2_features(model):
+    """Collects dec2's output features, one tensor per forward, while open."""
     feats = []
-    hook = model.dec1.register_forward_hook(lambda mod, args, out: feats.append(out[0]))
+    hook = model.dec2.register_forward_hook(lambda mod, args, out: feats.append(out[0]))
     try:
         yield feats
     finally:
@@ -394,7 +395,7 @@ def phase_slice(model, dev, counters):
     for fn in counters:
         fn.launches = 0
     t0 = time.perf_counter()
-    with dec1_features(model) as got_dec1:
+    with dec2_features(model) as got_feat:
         out_f = np.concatenate([o for _, o in inp_f.stream_from(iter(chunks))])
     t1 = time.perf_counter()
     out_u8 = np.concatenate([o for _, o in inp_u8.stream_from(iter(chunks))])
@@ -403,7 +404,7 @@ def phase_slice(model, dev, counters):
     forwards = 2 * len(chunks)
 
     want_f, want_u8 = [], []
-    with torch.inference_mode(), dec1_features(model) as want_dec1:
+    with torch.inference_mode(), dec2_features(model) as want_feat:
         for _, im, mk in chunks:
             x = torch.from_numpy(im.astype(np.float32) / 255.0).to(dev)
             m = torch.from_numpy((mk > 0).astype(np.float32)).to(dev)
@@ -413,40 +414,39 @@ def phase_slice(model, dev, counters):
     # the sensitivity control: the plain path of the last chunk in TF32
     torch.backends.cudnn.allow_tf32 = True
     try:
-        with torch.inference_mode(), dec1_features(model) as tf32_dec1:
+        with torch.inference_mode(), dec2_features(model) as tf32_feat:
             model.forward_plain(x * m, m)
     finally:
         torch.backends.cudnn.allow_tf32 = False
     want_f, want_u8 = np.concatenate(want_f), np.concatenate(want_u8)
     err = nrmse(out_f, want_f)
-    feat_err = nrmse(torch.cat(got_dec1), torch.cat(want_dec1))
-    tf32_err = nrmse(tf32_dec1[0], want_dec1[-1])
+    feat_err = nrmse(torch.cat(got_feat), torch.cat(want_feat))
+    tf32_err = nrmse(tf32_feat[0], want_feat[-1])
     u8_diff = int(np.abs(out_u8.astype(np.int16) - want_u8.astype(np.int16)).max())
     holes = masks == 0
     line("slice", tiles=N_TILES, chunk=CHUNK, shape="x".join(map(str, out_f.shape)),
-         nrmse=f"{err:.3e}", dec1_nrmse=f"{feat_err:.3e}",
-         tf32_dec1_nrmse=f"{tf32_err:.3e}", u8_max_diff=u8_diff,
+         nrmse=f"{err:.3e}", dec2_nrmse=f"{feat_err:.3e}",
+         tf32_dec2_nrmse=f"{tf32_err:.3e}", u8_max_diff=u8_diff,
          hole_mean=f"{out_f[holes].mean():.4f}", hole_std=f"{out_f[holes].std():.4f}",
-         dec1_std=f"{torch.cat(want_dec1).std().item():.4f}", forwards=forwards,
+         dec2_std=f"{torch.cat(want_feat).std().item():.4f}", forwards=forwards,
          k2_launches=launches["fused_pconv_eval"], k1_launches=launches["upsample2x_fwd"],
+         k3_launches=launches["fused_decoder_tail"],
          float_tiles_per_s=f"{N_TILES / (t1 - t0):.2f}",
          u8_tiles_per_s=f"{N_TILES / (t2 - t1):.2f}",
          peak_mem_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}")
     require(out_f.shape == (N_TILES, SIZE, SIZE, 1), f"slice: shape {out_f.shape}")
     require(np.isfinite(out_f).all(), "slice: non-finite output")
     require(err <= SLICE_NRMSE_TOL, f"slice: NRMSE {err} > {SLICE_NRMSE_TOL}")
-    require(feat_err <= DEC1_NRMSE_TOL, f"slice: dec1 NRMSE {feat_err} > {DEC1_NRMSE_TOL}")
-    require(tf32_err > DEC1_NRMSE_TOL,
-            f"slice: the dec1 check passes the TF32 plain path ({tf32_err}): it sees nothing")
+    require(feat_err <= FEAT_NRMSE_TOL, f"slice: dec2 NRMSE {feat_err} > {FEAT_NRMSE_TOL}")
+    require(tf32_err > FEAT_NRMSE_TOL,
+            f"slice: the dec2 check passes the TF32 plain path ({tf32_err}): it sees nothing")
     require(u8_diff <= SLICE_U8_TOL, f"slice: uint8 off by {u8_diff} grey levels")
     require(np.array_equal(out_f[~holes], imgs[~holes].astype(np.float32) / 255.0),
             "slice: valid pixels are not copied from the input")
-    require(launches["fused_pconv_eval"] == 14 * forwards,
-            f"slice: K2 launched {launches['fused_pconv_eval']} times in {forwards} forwards")
-    require(launches["upsample2x_fwd"] == 7 * forwards,
-            f"slice: K1 launched {launches['upsample2x_fwd']} times in {forwards} forwards")
-    require(launches["upsample2x_bwd"] == 0, "slice: K1 bwd launched in inference")
-    require(launches["fused_decoder_tail"] == 0, "slice: K3 launched with fused_tail off")
+    want = {"fused_pconv_eval": 13, "upsample2x_fwd": 6, "upsample2x_bwd": 0,
+            "fused_decoder_tail": 1}
+    require(all(launches[k] == v * forwards for k, v in want.items()),
+            f"slice: launches {launches} in {forwards} forwards, want {want} each")
     return launches
 
 
@@ -473,7 +473,7 @@ def phase_files(model, dev, counters):
         sizes = {Image.open(p).size for p in [one, *outs]}
         line("files", evaluate_launches=one_launches, tiles=N_FILES, written=len(outs),
              sizes=sorted(sizes), seconds=f"{seconds:.2f}")
-        require(one_launches == (14, 7, 0, 0), f"files: evaluate launched {one_launches}")
+        require(one_launches == (13, 6, 0, 1), f"files: evaluate launched {one_launches}")
         require(next(model.parameters()).device == dev, "files: evaluate moved the model")
         require(len(outs) == N_FILES, f"files: wrote {len(outs)} of {N_FILES}")
         require(sizes == {(OUTPUT_SIZE, OUTPUT_SIZE)}, f"files: sizes {sizes}")
@@ -554,6 +554,7 @@ def phase_train(dev, counters):
          g_loss=f"{losses[0]:.5f}", d_loss=f"{losses[1]:.5f}", val_g_loss=f"{losses[4]:.5f}",
          val_d_loss=f"{losses[5]:.5f}", k2_launches=launches["fused_pconv_eval"],
          k1_fwd_launches=launches["upsample2x_fwd"], k1_bwd_launches=launches["upsample2x_bwd"],
+         k3_launches=launches["fused_decoder_tail"],
          train_seconds=f"{seconds:.2f}", ms_per_step=f"{ms_step:.2f}",
          samples_per_s=f"{1e3 * TRAIN_BATCH / ms_step:.2f}",
          peak_mem_gib=f"{peak / 2**30:.2f}", reloaded=saved_ok, adam_entries=n_adam,
@@ -563,10 +564,13 @@ def phase_train(dev, counters):
             f"train: {steps} steps in the epoch, state.step {state.step}")
     require(launches["upsample2x_bwd"] == 7 * steps,
             f"train: K1 bwd launched {launches['upsample2x_bwd']} times in {steps} steps")
-    require(launches["upsample2x_fwd"] == 7 * (steps + val_fwd),
-            f"train: K1 fwd launched {launches['upsample2x_fwd']} times in {steps + val_fwd} forwards")
-    require(launches["fused_pconv_eval"] == 14 * val_fwd,
-            f"train: K2 launched {launches['fused_pconv_eval']} times: 14 per validation forward, "
+    require(launches["upsample2x_fwd"] == 7 * steps + 6 * val_fwd,
+            f"train: K1 fwd launched {launches['upsample2x_fwd']} times: 7 per train step, "
+            "6 per validation forward")
+    require(launches["fused_pconv_eval"] == 13 * val_fwd
+            and launches["fused_decoder_tail"] == val_fwd,
+            f"train: K2 and K3 launched {launches['fused_pconv_eval']} and "
+            f"{launches['fused_decoder_tail']} times: 13 and 1 per validation forward, "
             "none in a train step")
     require(saved_ok and n_adam[0] == 58 and n_adam[1] == 16,
             f"train: the checkpoint did not reload (Adam entries {n_adam})")
@@ -646,6 +650,23 @@ def phase_train_grad(dev, counters):
     require(up["tf32"] > GRAD_TOL and worst["tf32"] > GRAD_TOL,
             f"train_grad: the checks pass the TF32 plain path ({up['tf32']}, "
             f"{worst['tf32']}): they see nothing")
+
+
+def unfused_forward(model, x, m):
+    """The eval forward on the kernel path with the unfused tail (K1, K2's
+    dec1, cuDNN's final conv, the composite): the path K3 replaces."""
+    h, hm = model.decode(x, m, fused_pconv_eval, upsample2x_bilinear)
+    return model.tail_forward(h, hm, x, m, fused_pconv_eval, upsample2x_bilinear)
+
+
+@contextlib.contextmanager
+def unfused_tail(model):
+    """The model, whose forward runs the unfused tail while open."""
+    model.forward = lambda x, m: unfused_forward(model, x, m)
+    try:
+        yield model
+    finally:
+        del model.forward
 
 
 def dec2_outputs(model, x, m):
@@ -768,7 +789,7 @@ def phase_serve(dev, counters):
     n = SERVE_REQUESTS + SERVE_BATCH_ITEMS
     imgs, masks = dsm_tiles(n, SIZE, SEED + 11)
     service = InpaintService(size=SIZE, out_size=OUTPUT_SIZE, max_batch=SERVE_MAX_BATCH,
-                             base_width=WIDTH, device=dev, fused_tail=True)
+                             base_width=WIDTH, device=dev)
     service.warmup()
     srv = make_server(service, "127.0.0.1", 0, auth_secret=SERVE_SECRET)
     srv.daemon_threads = False  # server_close joins in-flight handlers: the drain
@@ -809,8 +830,8 @@ def phase_serve(dev, counters):
         srv.server_close()
     # the reference: the same tiles through BatchedInpainter with the unfused
     # tail, resized to the output contract as the server resizes
-    service.generator.fused_tail = False
-    ref = BatchedInpainter(service.generator, dev, chunk=CHUNK, quantize_uint8=True)(imgs, masks)
+    with unfused_tail(service.generator) as model:
+        ref = BatchedInpainter(model, dev, chunk=CHUNK, quantize_uint8=True)(imgs, masks)
     ref = [np.asarray(Image.fromarray(r[..., 0]).resize((OUTPUT_SIZE, OUTPUT_SIZE), Image.BILINEAR))
            for r in ref]
     diff = max(int(np.abs(o.astype(np.int16) - r.astype(np.int16)).max()) for o, r in zip(outs, ref))
@@ -826,7 +847,7 @@ def phase_serve(dev, counters):
     require(all(o is not None and o.shape == (OUTPUT_SIZE, OUTPUT_SIZE) and o.dtype == np.uint8
                 for o in outs), "serve: a response is not a 500x500 grey PNG")
     require(diff <= SLICE_U8_TOL, f"serve: {diff} grey levels from the unfused path")
-    require(health["status"] == "ok" and kind in health["devices"] and health["fused_tail"],
+    require(health["status"] == "ok" and kind in health["devices"],
             f"serve: healthz {health}")
     require(stats["requests"] == n and stats["errors"] == 0 and stats["mean_batch"] > 1,
             f"serve: stats {stats}: requests were not coalesced")

@@ -6,9 +6,9 @@ The full-width PConvUNet with seeded random weights, TF32 off and cuDNN
 benchmark on, as in chip_smoke.py (whose helpers it uses). The inference
 leg measures
 
-  1. the forward alone, kernel path (fused_tail off and on) and plain
-     path, tiles/s at batch 1, 8, 16 and 32 (CUDA events, median of 5
-     after 2 warm-up calls);
+  1. the forward alone, kernel path (its tail K3, and for comparison
+     the unfused tail) and plain path, tiles/s at batch 1, 8, 16 and 32
+     (CUDA events, median of 5 after 2 warm-up calls);
   2. end to end, uint8 in and out through BatchedInpainter, 32 DSM-like
      tiles at chunk 8, 16 and 32, two runs each (host clock);
   3. a torch.profiler trace of the end-to-end run at chunk 8: device
@@ -18,19 +18,19 @@ leg measures
      the achieved TFLOP/s, and the wrapper's share in it: the copy of
      nn.Conv2d's weight into the kernel's HWIO layout, timed alone;
   5. the tail per call at batch 1, 8 and 32 on the model's own dec2
-     outputs: K3 (the model's fused tail), its plain version and the
+     outputs: K3 (the model's eval tail), its plain version and the
      unfused kernel path it replaces (K1, K2's dec1, cuDNN's final conv,
      the composite), ms and K3's TFLOP/s beside its bound.
 
 The serving leg starts the port's server (max_batch 16, the JAX
-default) in a thread on 127.0.0.1, fused_tail off and then on, and
-drives it through the port's client:
+default) in a thread on 127.0.0.1 and drives it through the port's
+client:
 
   6. requests/s and client p50/p95 latency at concurrency 1 (16
      requests) and 16 (64 requests), with the mean batch the batcher
      formed;
-  7. a torch.profiler trace of 32 requests at concurrency 16 with the
-     fused tail: busy time, idle share, device time by kernel name.
+  7. a torch.profiler trace of 32 requests at concurrency 16: busy
+     time, idle share, device time by kernel name and K3's share.
 
 The train leg (G, D and VGG seeded, the full loss, one batch already on
 the card) measures
@@ -64,7 +64,8 @@ from torch.profiler import ProfilerActivity, profile
 
 from chip_smoke import (
     SEED, SIZE, WIDTH, bound, dec2_outputs, device_batch, dsm_tiles, holey_mask, line, nbytes,
-    phase_build, phase_env, stage_geometries, time_ms, train_state, upsample_shapes,
+    phase_build, phase_env, stage_geometries, time_ms, train_state, unfused_forward,
+    upsample_shapes,
 )
 from terra_gan_tpu_torch.evaluation.inference import OUTPUT_SIZE
 from terra_gan_tpu_torch.ops.cuda.tail_kernel import fused_decoder_tail, fused_decoder_tail_plain
@@ -99,14 +100,10 @@ def forward_rates(model, dev, imgs, masks):
         m = torch.from_numpy((masks[:b] > 0).astype(np.float32)).to(dev)
         with torch.inference_mode():
             ms = time_ms(lambda: model(x * m, m), reps=5)
+            unfused = time_ms(lambda: unfused_forward(model, x * m, m), reps=5)
             plain = time_ms(lambda: model.forward_plain(x * m, m), reps=5)
-            model.fused_tail = True
-            try:
-                fused = time_ms(lambda: model(x * m, m), reps=5)
-            finally:
-                model.fused_tail = False
-        row = dict(batch=b, ms=ms, fused_tail_ms=fused, plain_ms=plain,
-                   tiles_per_s=1e3 * b / ms, fused_tail_tiles_per_s=1e3 * b / fused,
+        row = dict(batch=b, ms=ms, unfused_tail_ms=unfused, plain_ms=plain,
+                   tiles_per_s=1e3 * b / ms, unfused_tail_tiles_per_s=1e3 * b / unfused,
                    plain_tiles_per_s=1e3 * b / plain)
         line("forward", **{k: f"{v:.4f}" if isinstance(v, float) else v for k, v in row.items()})
         rows.append(row)
@@ -243,41 +240,38 @@ def drive(client, imgs, masks, concurrency: int, n: int):
 
 
 def serve_rates(dev, imgs, masks, out: Path):
-    rows, trace_row = [], None
-    for fused in (False, True):
-        service = InpaintService(size=SIZE, out_size=OUTPUT_SIZE, max_batch=SERVE_MAX_BATCH,
-                                 base_width=WIDTH, device=dev, fused_tail=fused)
-        service.warmup()
-        srv = make_server(service, "127.0.0.1", 0)
-        serving = threading.Thread(target=srv.serve_forever, daemon=True)
-        serving.start()
-        client = InpaintClient(f"http://127.0.0.1:{srv.server_port}")
-        try:
-            drive(client, imgs, masks, 4, 8)  # warm-up: the codecs and every path
-            for concurrency, n in SERVE_LOADS:
-                before = service.batcher.snapshot()
-                seconds, lat = drive(client, imgs, masks, concurrency, n)
-                after = service.batcher.snapshot()
-                batches = after["batches"] - before["batches"]
-                row = dict(fused_tail=fused, concurrency=concurrency, requests=n,
-                           requests_per_s=n / seconds, p50_ms=float(np.percentile(lat, 50)),
-                           p95_ms=float(np.percentile(lat, 95)), forwards=batches,
-                           mean_batch=(after["batch_size_sum"] - before["batch_size_sum"]) / batches)
-                line("serve", **{k: f"{v:.2f}" if isinstance(v, float) else v
-                                 for k, v in row.items()})
-                rows.append(row)
-            if fused:
-                trace_row = profiled(lambda: drive(client, imgs, masks, 16, 32),
-                                     out.with_name(out.stem + "_serve.trace.json"), "serve_trace",
-                                     concurrency=16, requests=32, fused_tail=True)
-                k3 = sum(t for n, t in trace_row["by_name_ms"].items() if "decoder_tail" in n)
-                trace_row.update(k3_ms=k3, k3_share=k3 / trace_row["busy_ms"])
-                line("serve_trace", k3_ms=f"{k3:.3f}", k3_share=f"{trace_row['k3_share']:.4f}")
-        finally:
-            srv.shutdown()
-            srv.server_close()
-        del service
-        torch.cuda.empty_cache()
+    rows = []
+    service = InpaintService(size=SIZE, out_size=OUTPUT_SIZE, max_batch=SERVE_MAX_BATCH,
+                             base_width=WIDTH, device=dev)
+    service.warmup()
+    srv = make_server(service, "127.0.0.1", 0)
+    serving = threading.Thread(target=srv.serve_forever, daemon=True)
+    serving.start()
+    client = InpaintClient(f"http://127.0.0.1:{srv.server_port}")
+    try:
+        drive(client, imgs, masks, 4, 8)  # warm-up: the codecs and every path
+        for concurrency, n in SERVE_LOADS:
+            before = service.batcher.snapshot()
+            seconds, lat = drive(client, imgs, masks, concurrency, n)
+            after = service.batcher.snapshot()
+            batches = after["batches"] - before["batches"]
+            row = dict(concurrency=concurrency, requests=n,
+                       requests_per_s=n / seconds, p50_ms=float(np.percentile(lat, 50)),
+                       p95_ms=float(np.percentile(lat, 95)), forwards=batches,
+                       mean_batch=(after["batch_size_sum"] - before["batch_size_sum"]) / batches)
+            line("serve", **{k: f"{v:.2f}" if isinstance(v, float) else v for k, v in row.items()})
+            rows.append(row)
+        trace_row = profiled(lambda: drive(client, imgs, masks, 16, 32),
+                             out.with_name(out.stem + "_serve.trace.json"), "serve_trace",
+                             concurrency=16, requests=32)
+        k3 = sum(t for n, t in trace_row["by_name_ms"].items() if "decoder_tail" in n)
+        trace_row.update(k3_ms=k3, k3_share=k3 / trace_row["busy_ms"])
+        line("serve_trace", k3_ms=f"{k3:.3f}", k3_share=f"{trace_row['k3_share']:.4f}")
+    finally:
+        srv.shutdown()
+        srv.server_close()
+    del service
+    torch.cuda.empty_cache()
     return rows, trace_row
 
 

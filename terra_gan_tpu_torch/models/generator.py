@@ -10,21 +10,22 @@ Architecture contract (reference: mvp_gan/src/models/generator.py):
     PConv over the upsampled features alone, a 64->1 conv, a sigmoid and
     the composite ``out * (1 - mask) + x * mask``.
 
-With ``fused_tail`` set, the eval forward runs the tail as one
-``fused_decoder_tail(..., k_skip=None)`` call (K3): it replaces the
-last upsample, dec1's stage, the final conv, the sigmoid and the
-composite. It needs the tail to be an exact 2x (an even input size) and
-raises otherwise. Train mode ignores the flag (K3 has no backward), and
-it is off by default, as in the JAX package, whose model never calls
-its tail kernel.
+The eval forward runs the tail as one ``fused_decoder_tail(...,
+k_skip=None)`` call (K3): it replaces the last upsample, dec1's stage,
+the final conv, the sigmoid and the composite, and on the H100 it is
+faster than those at every batch measured. K3 needs the tail to be an
+exact 2x; at an input size where it is not (enc1 rounds an odd size
+up, so pad-to-match crops), and in train mode (K3 has no backward),
+the forward runs the unfused tail, ``tail_forward``.
 
-In eval mode every PConv stage is one ``fused_pconv_eval`` call (K2);
-in train mode a stage is ``ops.pconv.partial_conv2d_split``, then
-``nn.BatchNorm2d`` on the batch statistics (torch's own train-mode
+In eval mode every PConv stage outside K3 is one ``fused_pconv_eval``
+call (K2); in train mode a stage is ``ops.pconv.partial_conv2d_split``,
+then ``nn.BatchNorm2d`` on the batch statistics (torch's own train-mode
 semantics, which the JAX package's ``TorchBatchNorm`` emulates), then
-ReLU. In both modes every bilinear x2 is ``upsample2x_bilinear``: K1
-forward, and in training K1 backward, on a card; their plain versions
-on the CPU. The nearest upsample, pad-to-match, mask merge, final conv,
+ReLU. In both modes every bilinear x2 outside K3 is
+``upsample2x_bilinear``: K1 forward, and in training K1 backward, on a
+card; their plain versions on the CPU. The nearest upsample,
+pad-to-match, mask merge and, in the unfused tail, the final conv,
 sigmoid and composite are plain torch, as the JAX package leaves them
 to XLA.
 
@@ -116,11 +117,10 @@ class PConvUNet(nn.Module):
     the composited image, same shape as x.
     """
 
-    def __init__(self, base_width: int = 64, fused_tail: bool = False):
+    def __init__(self, base_width: int = 64):
         super().__init__()
         w = base_width
         self.base_width = w
-        self.fused_tail = fused_tail
         enc = [(1, w, 7), (w, 2 * w, 5), (2 * w, 4 * w, 5), (4 * w, 8 * w, 3),
                (8 * w, 8 * w, 3), (8 * w, 8 * w, 3), (8 * w, 8 * w, 3)]
         for i, (cin, cout, k) in enumerate(enc):
@@ -147,6 +147,14 @@ class PConvUNet(nn.Module):
         )
 
     def _run(self, x, mask, stage: StageFn, upsample, tail) -> torch.Tensor:
+        h, m = self.decode(x, mask, stage, upsample)
+        exact_2x = x.shape[1] == 2 * h.shape[1] and x.shape[2] == 2 * h.shape[2]
+        if self.training or not exact_2x:
+            return self.tail_forward(h, m, x, mask, stage, upsample)
+        return self.fused_tail_forward(h, m, x, mask, tail)
+
+    def decode(self, x, mask, stage: StageFn, upsample) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The encoder and the decoder up to dec2: dec2's (features, mask)."""
         feats, masks = [x], [mask]
         h, m = x, mask
         for i in range(1, 8):
@@ -161,14 +169,13 @@ class PConvUNet(nn.Module):
             h, m = getattr(self, f"dec{n}")(
                 up_f, torch.maximum(up_m, skip_m), skip=skip_f, stage=stage
             )
-
-        if self.fused_tail and not self.training:
-            return self.fused_tail_forward(h, m, x, mask, tail)
-        return self.tail_forward(h, m, x, mask, stage, upsample)
+        return h, m
 
     def tail_forward(self, h, m, x, mask, stage: StageFn, upsample) -> torch.Tensor:
         """The unfused tail from dec2's (features, mask): upsample, dec1's
-        stage, the final conv, the sigmoid and the composite."""
+        stage, the final conv, the sigmoid and the composite. Train mode
+        and a tail that is not an exact 2x run it; on a card it is also
+        what K3 is held against."""
         h = pad_to_match(upsample(h), x.shape[1], x.shape[2])
         m = pad_to_match(upsample2x_nearest(m), mask.shape[1], mask.shape[2])
         h, _ = self.dec1(h, torch.maximum(m, mask), stage=stage)

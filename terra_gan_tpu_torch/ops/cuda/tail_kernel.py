@@ -16,8 +16,8 @@ dec1 convolves the upsampled features alone; the JAX function's form
 together. The kernel is ``csrc/decoder_tail.cu``: fp32, bound by FMA
 throughput; the source note there gives the design. The plain version
 is ``tail_reference``'s op sequence on the port's own ops (K1's and
-K2's plain versions, ``F.conv2d``), so on the CPU it is the unfused
-tail of ``PConvUNet.forward_plain`` to the bit.
+K2's plain versions, ``F.conv2d``), so on the CPU it gives the bits of
+the model's unfused tail, ``PConvUNet.tail_forward``.
 
 ``fused_decoder_tail`` takes the plain version only for tensors on the
 CPU; for CUDA tensors it launches the kernel or raises. The kernel has

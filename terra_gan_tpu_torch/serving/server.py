@@ -23,11 +23,11 @@ Requests are queued and coalesced into device batches of up to
 max_batch}. A batch goes up as one stacked uint8 tensor (image and 0/1
 mask), is normalised and run on the card, quantised to uint8 there, and
 comes back at 1 byte a pixel; PIL decodes and encodes the PNGs. The
-model is fp32 (the port has no bf16 mode yet) and, with `fused_tail`,
-runs its tail through K3 (ops/cuda/tail_kernel.py).
+model is fp32 (the port has no bf16 mode yet); on a card its eval
+forward runs the tail through K3 (ops/cuda/tail_kernel.py).
 
 Run: python -m terra_gan_tpu_torch.serving.server --checkpoint master.pth
-        [--port 8500] [--size 512] [--max-batch 16] [--fused-tail]
+        [--port 8500] [--size 512] [--max-batch 16]
 """
 
 from __future__ import annotations
@@ -158,8 +158,7 @@ class InpaintService:
     The generator comes from a reference-layout ``.pth`` (``checkpoint``)
     or, without one, from random weights seeded with ``SEED``
     (``init_generator``). It runs on ``device``, the card unless the
-    caller asks for the CPU, in eval mode, fp32; ``fused_tail`` runs its
-    tail through K3.
+    caller asks for the CPU, in eval mode, fp32.
     """
 
     def __init__(
@@ -170,7 +169,6 @@ class InpaintService:
         max_batch: int = 16,
         base_width: int = 64,
         device="cuda",
-        fused_tail: bool = False,
     ):
         self.size = size
         self.out_size = out_size
@@ -182,7 +180,6 @@ class InpaintService:
             logger.warning("no checkpoint; serving random weights (seed %d)", SEED)
             self.generator = init_generator(base_width, torch.Generator().manual_seed(SEED),
                                             self.device)
-        self.generator.fused_tail = fused_tail
         # torch turns division by a Python scalar on CUDA into a multiply
         # by its reciprocal; a device tensor keeps /255 exact
         self._255 = torch.full((), 255.0, device=self.device)
@@ -325,7 +322,6 @@ def make_server(
                     "devices": _devices(service),
                     "device": str(service.device),
                     "model_size": service.size,
-                    "fused_tail": service.generator.fused_tail,
                     "auth": auth_secret is not None,
                 })
             if not self._authorized():
@@ -421,8 +417,6 @@ def main(argv=None) -> int:
     p.add_argument("--max-batch", type=int, default=16)
     p.add_argument("--base-width", type=int, default=64)
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
-    p.add_argument("--fused-tail", action="store_true",
-                   help="run the decoder tail as one fused kernel (K3)")
     p.add_argument("--fp32", action="store_true",
                    help="exact fp32 mode: the port's only mode, and its default")
     p.add_argument("--bf16", action="store_true", help="not ported yet")
@@ -448,7 +442,6 @@ def main(argv=None) -> int:
     service = InpaintService(
         checkpoint=args.checkpoint, size=args.size, out_size=args.out_size,
         max_batch=args.max_batch, base_width=args.base_width, device=args.device,
-        fused_tail=args.fused_tail,
     )
     service.warmup()
     server = make_server(service, args.host, args.port, auth_secret=secret,

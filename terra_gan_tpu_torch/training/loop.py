@@ -10,7 +10,7 @@ tile. Batch losses stay on the device and are read once per epoch and
 every ``log_interval`` batches.
 
 It runs where the state's modules are: on a card the train steps run K1
-forward and backward, and validation the eval forward's K2 and K1.
+forward and backward, and validation the eval forward's K2, K1 and K3.
 Preemption and resume, the asynchronous checkpoint writer, the QAT tail,
 the device mesh and the experiment tracker of the JAX loop are not
 ported yet.

@@ -97,7 +97,7 @@ def make_eval_step(
 ):
     """Validation step (train.py:277-303): step(state, batch, vgg) -> (gen, metrics).
 
-    G runs in eval mode (K2 and K1 on a card). The reference quirk is kept
+    G runs in eval mode (K2, K1 and K3 on a card). The reference quirk is kept
     by default: validation never calls ``discriminator.eval()``
     (train.py:279), so its D forwards run in train mode, normalising by
     the batch and advancing D's running statistics twice per batch; pass

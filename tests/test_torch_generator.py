@@ -3,8 +3,10 @@
 Both packages get the same variables (JAX init, BatchNorm parameters and
 running statistics randomised in numpy) and the same inputs; the eval
 forward is held to NRMSE <= 1e-5 over the whole composite and to 1e-6
-over dec1's features, where the signal is: with random weights the
-holes of the composite sit near sigmoid(0) with little spread. The .pth round
+over dec2's and dec1's features, where the signal is: with random
+weights the holes of the composite sit near sigmoid(0) with little
+spread. The eval forward runs the tail as one fused call, so the port's
+dec1 features come from its unfused tail on the same dec2 output. The .pth round
 trips go both ways with strict loading.
 """
 
@@ -26,6 +28,8 @@ from terra_gan_tpu.models import PConvUNet as JaxPConvUNet
 from terra_gan_tpu.utils import torch_compat as jax_compat
 from terra_gan_tpu.utils.torch_compat import generator_vars_to_torch_state, save_pth
 from terra_gan_tpu_torch.models import PConvUNet
+from terra_gan_tpu_torch.ops.cuda.pconv_kernel import fused_pconv_eval
+from terra_gan_tpu_torch.ops.resize import upsample2x_bilinear
 from terra_gan_tpu_torch.utils import device as tdevice
 from terra_gan_tpu_torch.utils import torch_compat as port_compat
 from terra_gan_tpu_torch.utils import weights as tweights
@@ -36,7 +40,7 @@ from terra_gan_tpu_torch.utils.weights import (
 )
 
 NRMSE_TOL = 1e-5       # the composite
-DEC1_NRMSE_TOL = 1e-6  # dec1's features: fp32 order ~2e-8 here, TF32 ~3e-5 on a card
+FEAT_NRMSE_TOL = 1e-6  # dec2's and dec1's features: fp32 order ~2e-8 here, TF32 ~3e-5 on a card
 REPO = Path(__file__).resolve().parent.parent
 
 
@@ -73,16 +77,19 @@ def jax_forward(g, v, x, m):
     return np.asarray(jax.jit(lambda v, a, b: g.apply(v, a * b, b, False))(v, x, m))
 
 
-def jax_forward_dec1(g, v, x, m):
-    """(composite, dec1's output features) of the JAX model."""
+def jax_forward_feats(g, v, x, m):
+    """(composite, dec2's and dec1's output features) of the JAX model."""
     def run(v, a, b):
         return g.apply(
             v, a * b, b, False, mutable=["intermediates"],
-            capture_intermediates=lambda mdl, method: mdl.name == "dec1" and method == "__call__",
+            capture_intermediates=lambda mdl, method: (
+                mdl.name in ("dec2", "dec1") and method == "__call__"),
         )
 
     out, state = jax.jit(run)(v, x, m)
-    return np.asarray(out), np.asarray(state["intermediates"]["dec1"]["__call__"][0][0])
+    feats = state["intermediates"]
+    return (np.asarray(out), np.asarray(feats["dec2"]["__call__"][0][0]),
+            np.asarray(feats["dec1"]["__call__"][0][0]))
 
 
 def port_forward(model, x, m):
@@ -90,15 +97,21 @@ def port_forward(model, x, m):
         return model(torch.from_numpy(x * m), torch.from_numpy(m)).numpy()
 
 
-def port_forward_dec1(model, x, m):
-    """(composite, dec1's output features) of the port's model."""
-    feats = []
-    hook = model.dec1.register_forward_hook(lambda mod, args, out: feats.append(out[0]))
+def port_forward_feats(model, x, m):
+    """(composite, dec2's and dec1's output features) of the port's model;
+    dec1's from the unfused tail on the forward's own dec2 output."""
+    feats = {}
+    hooks = [getattr(model, n).register_forward_hook(
+        lambda mod, args, out, n=n: feats.setdefault(n, out)) for n in ("dec2", "dec1")]
     try:
         out = port_forward(model, x, m)
+        with torch.inference_mode():
+            xt, mt = torch.from_numpy(x * m), torch.from_numpy(m)
+            model.tail_forward(*feats["dec2"], xt, mt, fused_pconv_eval, upsample2x_bilinear)
     finally:
-        hook.remove()
-    return out, feats[0].numpy()
+        for hook in hooks:
+            hook.remove()
+    return out, feats["dec2"][0].numpy(), feats["dec1"][0].numpy()
 
 
 @pytest.fixture(scope="module")
@@ -111,12 +124,14 @@ def w8():
 def test_eval_forward_matches_jax(w8, width, hw):
     g, v = w8 if width == 8 else jax_variables(width)
     x, m = tiles(hw)
-    want, want_dec1 = jax_forward_dec1(g, v, x, m)
-    got, got_dec1 = port_forward_dec1(generator_from_jax_variables(v, width, "cpu"), x, m)
+    want, want_dec2, want_dec1 = jax_forward_feats(g, v, x, m)
+    got, got_dec2, got_dec1 = port_forward_feats(generator_from_jax_variables(v, width, "cpu"), x, m)
     assert got.shape == want.shape == x.shape
+    assert got_dec2.shape == want_dec2.shape == (x.shape[0], x.shape[1] // 2, x.shape[2] // 2, width)
     assert got_dec1.shape == want_dec1.shape == (*x.shape[:3], width)
     assert nrmse(got, want) <= NRMSE_TOL
-    assert nrmse(got_dec1, want_dec1) <= DEC1_NRMSE_TOL
+    assert nrmse(got_dec2, want_dec2) <= FEAT_NRMSE_TOL
+    assert nrmse(got_dec1, want_dec1) <= FEAT_NRMSE_TOL
     holes = m == 0
     np.testing.assert_array_equal(got[~holes], (x * m)[~holes])
 

@@ -28,7 +28,9 @@ from PIL import Image
 from terra_gan_tpu.models import PConvUNet as JaxPConvUNet
 from terra_gan_tpu.serving import InpaintService as JaxInpaintService
 from terra_gan_tpu.utils.torch_compat import generator_vars_to_torch_state, save_pth
+from terra_gan_tpu_torch.ops.cuda.pconv_kernel import fused_pconv_eval
 from terra_gan_tpu_torch.ops.cuda.tail_kernel import fused_decoder_tail
+from terra_gan_tpu_torch.ops.resize import upsample2x_bilinear
 from terra_gan_tpu_torch.portal import jwt_auth
 from terra_gan_tpu_torch.serving import (
     InpaintClient,
@@ -162,7 +164,7 @@ class TestHTTPService:
         health = json.loads(body)
         assert code == 200 and health["status"] == "ok"
         assert health["devices"] == ["cpu"] and health["auth"] is False
-        assert health["model_size"] == SIZE and health["fused_tail"] is False
+        assert health["model_size"] == SIZE
 
         img, mask = pair(0)
         code, _, body = request(f"{url}/inpaint", {"image": png_b64(img), "mask": png_b64(mask)})
@@ -235,14 +237,21 @@ def test_buckets_pad_and_warmup_runs_each():
 
 
 def test_fused_tail_service_matches_and_launches_nothing_on_cpu():
-    """fused_tail on the CPU takes K3's plain version: the same bytes as
-    the unfused tail, and no kernel launch."""
+    """The service's fused tail on the CPU takes K3's plain version: the
+    same bytes as the unfused tail, and no kernel launch."""
     rng = np.random.default_rng(4)
     xi = rng.integers(0, 255, (2, SIZE, SIZE, 1), dtype=np.uint8)
     mi = (rng.random((2, SIZE, SIZE, 1)) > 0.3).astype(np.uint8)
+    svc = service()
     before = fused_decoder_tail.launches
-    got = service(fused_tail=True)._infer(xi, mi)
-    np.testing.assert_array_equal(got, service()._infer(xi, mi))
+    got = svc._infer(xi, mi)
+    x = torch.from_numpy(xi.astype(np.float32) / 255.0)
+    m = torch.from_numpy(mi.astype(np.float32))
+    g = svc.generator
+    with torch.inference_mode():
+        h, hm = g.decode(x * m, m, fused_pconv_eval, upsample2x_bilinear)
+        y = g.tail_forward(h, hm, x * m, m, fused_pconv_eval, upsample2x_bilinear)
+    np.testing.assert_array_equal(got, (y.clamp(0.0, 1.0) * 255.0).to(torch.uint8).numpy())
     assert fused_decoder_tail.launches == before
 
 

@@ -20,8 +20,9 @@ import torch
 from terra_gan_tpu.models import PConvUNet as JaxPConvUNet
 from terra_gan_tpu.ops.pallas.tail_kernel import fused_decoder_tail as jax_tail
 from terra_gan_tpu.ops.pallas.tail_kernel import tail_reference
-from terra_gan_tpu_torch.models import PConvUNet
+from terra_gan_tpu_torch.ops.cuda.pconv_kernel import fused_pconv_eval
 from terra_gan_tpu_torch.ops.cuda.tail_kernel import fused_decoder_tail, fused_decoder_tail_plain
+from terra_gan_tpu_torch.ops.resize import upsample2x_bilinear
 from terra_gan_tpu_torch.utils.weights import generator_from_jax_variables, init_generator
 
 ATOL = 1e-5
@@ -125,6 +126,12 @@ def tiles(hw=64, seed=4):
     return x, m
 
 
+def unfused(model, x, m):
+    """The eval forward with the unfused tail, on the CPU's plain ops."""
+    h, hm = model.decode(x, m, fused_pconv_eval, upsample2x_bilinear)
+    return model.tail_forward(h, hm, x, m, fused_pconv_eval, upsample2x_bilinear)
+
+
 def test_model_with_fused_tail_matches_jax_and_the_unfused_tail(w8):
     g, v = w8
     x, m = tiles()
@@ -132,49 +139,70 @@ def test_model_with_fused_tail_matches_jax_and_the_unfused_tail(w8):
     model = generator_from_jax_variables(v, 8, "cpu")
     xt, mt = torch.from_numpy(x * m), torch.from_numpy(m)
     with torch.inference_mode():
-        unfused = model(xt, mt).numpy()
-        model.fused_tail = True
         fused = model(xt, mt).numpy()
+        plain = unfused(model, xt, mt).numpy()
     assert nrmse(fused, want) <= NRMSE_TOL
-    np.testing.assert_array_equal(fused, unfused)  # the same plain ops on the CPU
+    np.testing.assert_array_equal(fused, plain)  # the same plain ops on the CPU
 
 
-def test_model_constructor_takes_the_flag():
-    assert PConvUNet(8).fused_tail is False
-    assert PConvUNet(8, fused_tail=True).fused_tail is True
-    assert "fused_tail" not in "".join(PConvUNet(8, fused_tail=True).state_dict())
+def tails_taken(model, x, m):
+    """(fused, unfused) tail calls of one forward, and its output."""
+    calls = {"fused": 0, "unfused": 0}
+    for name, key in (("fused_tail_forward", "fused"), ("tail_forward", "unfused")):
+        def counted(*a, _f=getattr(model, name), _k=key):
+            calls[_k] += 1
+            return _f(*a)
+        setattr(model, name, counted)
+    try:
+        y = model(torch.from_numpy(x * m), torch.from_numpy(m))
+    finally:
+        del model.fused_tail_forward, model.tail_forward
+    return (calls["fused"], calls["unfused"]), y
 
 
-def test_train_mode_ignores_the_flag():
+@pytest.mark.parametrize("hw,train,want", [
+    (64, False, (1, 0)),   # eval at an exact 2x tail: K3's path
+    (63, False, (0, 1)),   # enc1 rounds 63 up: the tail is not 2x
+    (64, True, (0, 1)),    # train mode: K3 has no backward
+])
+def test_eval_forward_takes_the_fused_tail_at_2x_only(hw, train, want):
+    model = init_generator(8, torch.Generator().manual_seed(9), "cpu").train(train)
+    x, m = tiles(hw=hw, seed=9)
+    with torch.inference_mode(not train):
+        taken, y = tails_taken(model, x, m)
+    assert taken == want and y.shape == (2, hw, hw, 1)
+
+
+def test_train_mode_runs_the_unfused_tail():
     x, m = tiles(seed=5)
     out = {}
-    for flag in (False, True):
+    for name in ("forward", "unfused"):
         model = init_generator(8, torch.Generator().manual_seed(6), "cpu").train()
-        model.fused_tail = flag
-        y = model(torch.from_numpy(x * m), torch.from_numpy(m))
+        xt, mt = torch.from_numpy(x * m), torch.from_numpy(m)
+        y = model(xt, mt) if name == "forward" else unfused(model, xt, mt)
         y.mean().backward()
-        out[flag] = (y.detach(), model.dec1.input_conv.weight.grad, model.final.weight.grad,
+        out[name] = (y.detach(), model.dec1.input_conv.weight.grad, model.final.weight.grad,
                      model.dec1.bn.running_mean.clone())
-    for a, b in zip(out[False], out[True]):
+    for a, b in zip(out["forward"], out["unfused"]):
         assert torch.equal(a, b)
 
 
 def test_odd_input_raises_with_the_fused_tail():
     model = init_generator(8, torch.Generator().manual_seed(7), "cpu")
     x, m = tiles(hw=63, seed=7)
+    xt, mt = torch.from_numpy(x * m), torch.from_numpy(m)
     with torch.inference_mode():
-        model(torch.from_numpy(x * m), torch.from_numpy(m))  # unfused: crops and pads
-        model.fused_tail = True
+        assert model(xt, mt).shape == (2, 63, 63, 1)  # the unfused tail crops and pads
+        h, hm = model.decode(xt, mt, fused_pconv_eval, upsample2x_bilinear)
         with pytest.raises(ValueError, match="exact 2x"):
-            model(torch.from_numpy(x * m), torch.from_numpy(m))
+            model.fused_tail_forward(h, hm, xt, mt, fused_decoder_tail)
 
 
 def test_cpu_runs_launch_no_kernel(w8):
     before = fused_decoder_tail.launches
     port(make_args(8))
     model = generator_from_jax_variables(w8[1], 8, "cpu")
-    model.fused_tail = True
     x, m = tiles(seed=8)
     with torch.inference_mode():
         model(torch.from_numpy(x * m), torch.from_numpy(m))
-    assert fused_decoder_tail.launches == before == 0
+    assert fused_decoder_tail.launches == before
