@@ -1,4 +1,4 @@
-"""Drive the PyTorch port's 512^2 inference and training paths once on one CUDA card.
+"""Drive the PyTorch port's 512^2 inference, training, serving and CLI paths once on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -8,7 +8,7 @@ Phases, one line of figures each (any failure raises and exits nonzero):
   3. K2 fused_pconv_eval against its plain version at the 14 stage
      geometries of the full-width (base_width=64) 512^2 PConvUNet, batch 2;
   4. K1 upsample2x_fwd against its plain version at the 7 decoder
-     shapes, fp32 (torch's bits) and bf16;
+     shapes, fp32 (torch's bits) and bf16; its fp32 times at batch 8 too;
   5. K1 upsample2x_bwd against torch's own upsample backward at the same
      shapes, fp32 and bf16, and the adjointness <U x, g> = <x, U^T g>;
   6. the slice: 16 synthetic uint8 DSM-like tiles through
@@ -43,7 +43,20 @@ Phases, one line of figures each (any failure raises and exits nonzero):
      the port's client 16 concurrent /inpaint requests and one
      /inpaint_batch of 4, /healthz, /stats, /metrics and a 401; every
      response within 1 grey level of BatchedInpainter's output with the
-     unfused tail, and 1 K3, 13 K2 and 6 K1 launches a forward.
+     unfused tail, and 1 K3, 13 K2 and 6 K1 launches a forward;
+ 12. probes: the five probe kernels P1-P5 (csrc/probes.cu) against their
+     plain versions at scripts/probe_mosaic.py's shapes and seed (P4 and
+     P5 equal, P1-P3 within 1e-6 of max|plain|) and against numpy as
+     cli/probe_cuda.py prints it; their times beside an empty launch's,
+     per call (CUDA events) and on the device (torch.profiler);
+ 13. doctor: ``doctor.main([])`` exits 0 with backend, kernel-build,
+     model and probes PASS and all five probes OK;
+ 14. cli: the pipeline CLI's evaluate mode in-process (config read by
+     yaml_lite, 2 parent grids of 8 512^2 PNG tiles, a master checkpoint
+     of the seeded full-width model): exit 0, every inpainted PNG within
+     1 grey level of inpaint_directory with the unfused tail, every
+     colored PNG the LUT of its inpainted one, 13 K2, 6 K1 and 1 K3
+     launches a forward; ``--mode train`` exits 2.
 Then a JSON line of per-kernel figures (each with its bound: the larger
 of its bytes over 3.35 TB/s and its operations over the 67 TFLOP/s of
 fp32 outside the tensor cores, from this run's shapes), and last
@@ -55,8 +68,11 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import io
 import json
+import logging
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -71,14 +87,18 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from terra_gan_tpu_torch.cli import doctor, main_pipeline
+from terra_gan_tpu_torch.cli.probe_cuda import probe_cases, probe_inputs, run_probes
+from terra_gan_tpu_torch.data.visualization import build_lut
 from terra_gan_tpu_torch.evaluation.inference import OUTPUT_SIZE, evaluate, inpaint_directory
 from terra_gan_tpu_torch.ops.cuda._build import build_info, load_library
+from terra_gan_tpu_torch.ops.cuda.probe_kernels import PLAIN, PROBES, empty_launch
 from terra_gan_tpu_torch.ops.cuda.pconv_kernel import (
     fold_batch_norm,
     fused_pconv_eval,
     fused_pconv_eval_plain,
 )
-from terra_gan_tpu_torch.config import TrainingConfig
+from terra_gan_tpu_torch.config import LoopConfig
 from terra_gan_tpu_torch.ops.cuda.upsample_kernel import (
     upsample2x_bwd,
     upsample2x_bwd_plain,
@@ -94,6 +114,7 @@ from terra_gan_tpu_torch.training.checkpoint import import_pth
 from terra_gan_tpu_torch.training.loop import train
 from terra_gan_tpu_torch.training.state import GANTrainState
 from terra_gan_tpu_torch.training.step import generator_objective, make_train_step
+from terra_gan_tpu_torch.utils import yaml_lite
 from terra_gan_tpu_torch.utils.weights import init_discriminator, init_generator, init_vgg
 
 SEED = 0
@@ -129,6 +150,14 @@ GRAD_TOL = 1e-5
 K3_NRMSE_TOL = 1e-5
 SERVE_REQUESTS, SERVE_BATCH_ITEMS, SERVE_MAX_BATCH = 16, 4, 8
 SERVE_SECRET = "chip-smoke-secret"
+K1_B8_BATCH = 8
+# P1-P3 against their plain versions, of max|plain|: fp32 sums in another
+# order (sums of 64 and 128 products); P4 and P5 round as torch does: equal
+PROBE_SUM_REL_TOL = 1e-6
+CLI_GRIDS, CLI_TILES = ("NJ05", "SU12"), 8
+# scripts/probe_mosaic.py's lines of the probes the kernels replace
+PROBE_REPLACES = {"probe_lane_reduce": 45, "probe_matvec_dot": 66, "probe_lane_concat_dot": 91,
+                  "probe_mask_broadcast": 117, "probe_row_build": 138}
 # the card's peaks (NVIDIA's H100 SXM data sheet): fp32 outside the tensor
 # cores and device memory; a kernel's bound is the larger of its two times
 FP32_FLOPS = 67e12
@@ -282,8 +311,17 @@ def upsample_shapes(width: int):
 def phase_k1(model, dev):
     gen = torch.Generator().manual_seed(SEED + 2)
     worst_abs, ms, plain_ms, lib_ms, flop, moved = 0.0, 0.0, 0.0, 0.0, 0.0, 0
+    b8 = {"ms": 0.0, "plain_ms": 0.0, "flop": 0.0, "bytes": 0}
     for h, c in upsample_shapes(model.base_width):
         x = torch.rand((STAGE_BATCH, h, h, c), generator=gen).to(dev)
+        # fp32 at the profile's batch 8 as well (information only)
+        x8 = torch.rand((K1_B8_BATCH, h, h, c), generator=gen).to(dev)
+        y8 = upsample2x_fwd(x8)
+        b8["ms"] += time_ms(lambda: upsample2x_fwd(x8))
+        b8["plain_ms"] += time_ms(lambda: upsample2x_fwd_plain(x8))
+        b8["flop"] += 9.0 * y8.numel()
+        b8["bytes"] += nbytes(x8, y8)
+        del x8, y8
         got, want = upsample2x_fwd(x), upsample2x_fwd_plain(x)
         err = (got - want).abs().max().item()
         xb = x.bfloat16()
@@ -306,6 +344,10 @@ def phase_k1(model, dev):
         lib_ms += t_l
         flop += 9.0 * got.numel()  # two FMAs and a multiply per axis pair of taps
         moved += nbytes(x, got)
+    b8_bound = bound(b8["flop"], b8["bytes"])
+    line("k1_b8", batch=K1_B8_BATCH, shapes=7, ms=f"{b8['ms']:.4f}",
+         plain_ms=f"{b8['plain_ms']:.4f}", bound_ms=f"{b8_bound['bound_ms']:.4f}",
+         bound_by=b8_bound["bound_by"])
     return dict(max_abs_err=worst_abs, ms=ms, plain_ms=plain_ms, **bound(flop, moved),
                 library_ms=lib_ms)
 
@@ -502,7 +544,7 @@ def train_state(seed: int, dev):
 
 def phase_train(dev, counters):
     imgs, masks = dsm_tiles(N_TRAIN + N_VAL, SIZE, SEED + 5)
-    cfg = TrainingConfig(epochs=1, batch_size=TRAIN_BATCH)
+    cfg = LoopConfig(epochs=1, batch_size=TRAIN_BATCH)
     state, vgg = train_state(SEED + 6, dev)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
         root = Path(tmp)
@@ -604,7 +646,7 @@ def g_objective_grads(state, vgg, batch, snapshot, upsample=None):
             x, m, fused_pconv_eval_plain, upsample, fused_decoder_tail_plain)
     hook = G.dec2.register_forward_hook(capture)
     try:
-        total, *_ = generator_objective(state, batch, vgg, TrainingConfig().loss_config(),
+        total, *_ = generator_objective(state, batch, vgg, LoopConfig().loss_config(),
                                         forward=forward)
         total.backward()
     finally:
@@ -861,6 +903,178 @@ def phase_serve(dev, counters):
     return launches
 
 
+def probe_work(name: str, args, out) -> dict:
+    """The bound of one probe call: each input read and the output written
+    once, and its operations."""
+    a = args[0]
+    flop = {"probe_lane_reduce": 2.0 * a.numel(), "probe_matvec_dot": 2.0 * a.numel(),
+            # the 2a half, then the K = 2C product
+            "probe_lane_concat_dot": a.numel() + 2.0 * out.numel() * 2 * a.shape[-1],
+            "probe_mask_broadcast": float(a.numel()),
+            "probe_row_build": 3.0 * (a.numel() - a[0].numel())}[name]
+    return bound(flop, nbytes(*args, out))
+
+
+def device_ms(fn, calls: int = 20) -> float:
+    """Device time a call of fn takes on the card, from torch.profiler's device
+    events (information only: at 256 KiB a per-call CUDA-event time is the
+    host's launch cost, since the card idles between calls)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return sum(e.time_range.elapsed_us() for e in events) / calls / 1e3
+
+
+def phase_probes(dev):
+    """P1-P5 against their plain versions at probe_mosaic's shapes and seed,
+    then against numpy as probe_cuda prints it; times beside an empty launch."""
+    libraries = {"probe_lane_reduce": torch.matmul, "probe_matvec_dot": torch.matmul,
+                 "probe_mask_broadcast": lambda a, m: a * m[..., None]}
+    empty_ms = time_ms(lambda: empty_launch(dev))
+    empty_device_ms = device_ms(lambda: empty_launch(dev))
+    figures = {}
+    for _, fn, np_args, _, _ in probe_cases(*probe_inputs()):
+        name = fn.__name__
+        args = [torch.from_numpy(x).to(dev) for x in np_args]
+        got, want = fn(*args), PLAIN[fn](*args)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        scale = want.abs().max().item()
+        exact = name in ("probe_mask_broadcast", "probe_row_build")
+        t_k = time_ms(lambda: fn(*args))
+        t_p = time_ms(lambda: PLAIN[fn](*args))
+        t_l = time_ms(lambda: libraries[name](*args)) if name in libraries else None
+        t_dev = device_ms(lambda: fn(*args))
+        fig = dict(max_abs_err=err, ms=t_k, plain_ms=t_p, **probe_work(name, args, got),
+                   library_ms=t_l)
+        line("probes", probe=name, args="+".join("x".join(map(str, a.shape)) for a in args),
+             out="x".join(map(str, got.shape)), max_abs_err=f"{err:.3e}",
+             rel=f"{err / max(scale, 1e-30):.3e}", ms=f"{t_k:.4f}", plain_ms=f"{t_p:.4f}",
+             library_ms="none" if t_l is None else f"{t_l:.4f}", empty_launch_ms=f"{empty_ms:.4f}",
+             device_ms=f"{t_dev:.5f}", empty_device_ms=f"{empty_device_ms:.5f}",
+             bound_ms=f"{fig['bound_ms']:.6f}", bound_by=fig["bound_by"])
+        require(got.shape == want.shape, f"probes {name}: shape {tuple(got.shape)}")
+        if exact:
+            require(torch.equal(got, want), f"probes {name}: not equal to its plain version ({err})")
+        else:
+            require(err <= PROBE_SUM_REL_TOL * scale,
+                    f"probes {name}: err {err} > {PROBE_SUM_REL_TOL} * {scale}")
+        figures[name] = fig
+    results = run_probes(dev)
+    for r in results:
+        print("  probe_cuda:", r.line(), flush=True)
+    require(all(r.ok for r in results), "probes: a probe failed against numpy")
+    line("probes", empty_launch_ms=f"{empty_ms:.4f}", empty_device_ms=f"{empty_device_ms:.5f}")
+    return figures
+
+
+def phase_doctor(counters):
+    """doctor.main([]) on the card: exit 0, no FAIL or WARN on the rows the
+    card decides, and all five probes OK."""
+    out = io.StringIO()
+    for fn in counters:
+        fn.launches = 0
+    with contextlib.redirect_stdout(out):
+        code = doctor.main([])
+    launches = {fn.__name__: fn.launches for fn in counters}
+    text = out.getvalue()
+    print(text, end="", flush=True)
+    rows = dict((name, status) for status, name in re.findall(r"\[(\w+)\s*\] (\S+)", text))
+    line("doctor", exit=code, rows=rows, launches=launches)
+    require(code == 0, f"doctor: exit {code}")
+    for name in ("backend", "kernel-build", "model", "probes"):
+        require(rows.get(name) == "PASS", f"doctor: {name} is {rows.get(name)}")
+    require(text.count(" OK maxerr=") == 5, "doctor: the probes row does not show five OKs")
+    return launches
+
+
+CLI_CONFIG = """\
+# the CLI phase's config: full-width checkpoint, 512^2 tiles
+evaluation:
+  checkpoint_dir: "ckpts"   # master_checkpoint.pth lives here
+experiment_tracking:
+  enabled: false
+data:
+  processed_dir: data/processed
+  output_dir: data/output
+  image_size: 512
+"""
+
+
+def phase_cli(dev, counters):
+    """The pipeline CLI's evaluate mode in-process on a processed tree of
+    512^2 PNG tiles, held to inpaint_directory with the unfused tail."""
+    from PIL import Image
+
+    cfg = yaml_lite.loads(CLI_CONFIG)
+    require(cfg == {"evaluation": {"checkpoint_dir": "ckpts"},
+                    "experiment_tracking": {"enabled": False},
+                    "data": {"processed_dir": "data/processed", "output_dir": "data/output",
+                             "image_size": 512}}, f"cli: yaml_lite read {cfg}")
+    model = init_generator(WIDTH, torch.Generator().manual_seed(SEED), dev)
+    lut = build_lut()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as tmp, contextlib.chdir(tmp):
+        Path("config.yaml").write_text(CLI_CONFIG)
+        Path("ckpts").mkdir()
+        torch.save({"epoch": 0, "generator_state_dict": {
+            k: v.cpu() for k, v in model.state_dict().items()}}, "ckpts/master_checkpoint.pth")
+        for g, grid in enumerate(CLI_GRIDS):
+            imgs, masks = dsm_tiles(CLI_TILES, SIZE, SEED + 20 + g)
+            split = Path("data/processed") / grid / "test"
+            (split / "images").mkdir(parents=True)
+            (split / "masks").mkdir(parents=True)
+            for i in range(CLI_TILES):
+                stem = f"{grid.lower()}{i:02d}{i:02d}"
+                Image.fromarray(imgs[i, ..., 0]).save(split / "images" / f"{stem}.png")
+                Image.fromarray(masks[i, ..., 0]).save(split / "masks" / f"{stem}_mask_resized.png")
+        for fn in counters:
+            fn.launches = 0
+        t0 = time.perf_counter()
+        try:
+            code = main_pipeline.main(["--mode", "evaluate", "--config", "config.yaml"])
+            seconds = time.perf_counter() - t0
+            launches = {fn.__name__: fn.launches for fn in counters}
+            train_code = main_pipeline.main(["--mode", "train", "--config", "config.yaml"])
+        finally:
+            for h in logging.root.handlers[:]:  # the CLI's log file lives in tmp
+                logging.root.removeHandler(h)
+                h.close()
+        diff, n_png, lut_ok = 0, 0, True
+        for grid in CLI_GRIDS:
+            split = Path("data/processed") / grid / "test"
+            ref_dir = Path("ref") / grid
+            with unfused_tail(model) as unfused:
+                inpaint_directory(unfused, split / "images", split / "masks", ref_dir, device=dev)
+            for ref in sorted(ref_dir.glob("*_inpainted.png")):
+                got = np.asarray(Image.open(Path("data/output") / grid / "inpainted" / ref.name))
+                want = np.asarray(Image.open(ref))
+                diff = max(diff, int(np.abs(got.astype(np.int16) - want.astype(np.int16)).max()))
+                colored = Path("data/output") / grid / "colored" / f"{ref.stem}_colored.png"
+                lut_ok &= np.array_equal(np.asarray(Image.open(colored)), lut[got])
+                n_png += 1
+    forwards = len(CLI_GRIDS) * math.ceil(CLI_TILES / CHUNK)
+    line("cli", exit=code, train_exit=train_code, grids=len(CLI_GRIDS), tiles=n_png,
+         u8_max_diff_vs_unfused=diff, colored_is_lut=lut_ok, forwards=forwards,
+         seconds=f"{seconds:.2f}", k2_launches=launches["fused_pconv_eval"],
+         k1_launches=launches["upsample2x_fwd"], k3_launches=launches["fused_decoder_tail"])
+    require(code == 0, f"cli: evaluate exited {code}")
+    require(train_code == 2, f"cli: --mode train exited {train_code}, not 2")
+    require(n_png == len(CLI_GRIDS) * CLI_TILES, f"cli: {n_png} tiles written")
+    require(diff <= SLICE_U8_TOL, f"cli: {diff} grey levels from the unfused path")
+    require(lut_ok, "cli: a colored PNG is not the LUT of its inpainted PNG")
+    want = {"fused_pconv_eval": 13, "upsample2x_fwd": 6, "upsample2x_bwd": 0,
+            "fused_decoder_tail": 1}
+    require(all(launches[k] == v * forwards for k, v in want.items()),
+            f"cli: launches {launches} in {forwards} forwards, want {want} each")
+    return launches
+
+
 def main() -> None:
     kind, _ = phase_env()
     phase_build()
@@ -870,14 +1084,19 @@ def main() -> None:
     figures = {"fused_pconv_eval": phase_k2(model, dev), "upsample2x_fwd": phase_k1(model, dev),
                "upsample2x_bwd": phase_k1_bwd(model, dev)}
     counters = (fused_pconv_eval, upsample2x_fwd, upsample2x_bwd, fused_decoder_tail)
-    launches = phase_slice(model, dev, counters)
+    runs = [phase_slice(model, dev, counters)]
     phase_files(model, dev, counters)
     figures["fused_decoder_tail"] = phase_k3(model, dev)
     del model
-    # launches: the main paths' runs, the inference slice, the train epoch and serving
-    runs = [phase_train(dev, counters)]
+    # launches: the main paths' runs, the inference slice, the train epoch,
+    # serving, the doctor and the CLI's evaluate
+    runs.append(phase_train(dev, counters))
     phase_train_grad(dev, counters)
     runs.append(phase_serve(dev, counters))
+    figures.update(phase_probes(dev))
+    runs.append(phase_doctor(counters + PROBES))
+    runs.append(phase_cli(dev, counters + PROBES))
+    launches = {fn.__name__: 0 for fn in counters + PROBES}
     for run in runs:
         for name, n in run.items():
             launches[name] += n
@@ -887,7 +1106,11 @@ def main() -> None:
         "upsample2x_fwd": ("upsample2x.cu", "terra_gan_tpu/ops/pallas/upsample_kernel.py:198"),
         "upsample2x_bwd": ("upsample2x.cu", "terra_gan_tpu/ops/pallas/upsample_kernel.py:204"),
         "fused_decoder_tail": ("decoder_tail.cu", "terra_gan_tpu/ops/pallas/tail_kernel.py:226"),
+        **{name: ("probes.cu", f"scripts/probe_mosaic.py:{ln}")
+           for name, ln in PROBE_REPLACES.items()},
     }
+    require(all(launches[name] > 0 for name in sources),
+            f"a kernel of the main paths was never launched there: {launches}")
     kernels = [
         {"name": name, "route": "cuda", "source": f"terra_gan_tpu_torch/csrc/{src}",
          "replaces": replaces, "launches": launches[name], **figures[name]}

@@ -15,11 +15,15 @@ Layout (mirrors the JAX package's names):
   losses/       the reference inpainting loss
   training/     train state, the fused G+D step, .pth checkpoints, the
                 epoch loop
-  data/         tile datasets and the prefetching batch loader
-  config.py     the training configuration with the JAX defaults
+  data/         tile datasets and the prefetching batch loader, the
+                per-grid directory layout, the DSM colorizer
+  config.py     the JAX package's typed config schema, read with
+                utils/yaml_lite.py (no PyYAML), and the loop's LoopConfig
+  cli/          the pipeline CLI (evaluate), the doctor, the probe run
   parallel/     BatchedInpainter: pinned, pipelined batched inference
   evaluation/   evaluate / inpaint_directory and their host helpers
-  utils/        device resolution, weights carried across packages
+  utils/        device resolution, weights carried across packages,
+                the YAML reader
 
 Kernels build with nvcc from csrc/ at their first CUDA call.
 """

@@ -116,6 +116,12 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.tg_upsample2x_bwd.argtypes = [_P, _P] + [_I] * 5 + [_P]
     lib.tg_decoder_tail_f32.restype = _I
     lib.tg_decoder_tail_f32.argtypes = [_P] * 12 + [_I] * 4 + [_P]
+    for name, n_ptr, n_int in (("lane_reduce", 3, 2), ("matvec_dot", 3, 2),
+                               ("lane_concat_dot", 3, 3), ("mask_broadcast", 3, 2),
+                               ("row_build", 2, 2), ("empty", 0, 0)):
+        fn = getattr(lib, f"tg_probe_{name}")
+        fn.restype = _I
+        fn.argtypes = [_P] * n_ptr + [_I] * n_int + [_P]
 
 
 def load_library() -> ctypes.CDLL:
@@ -127,8 +133,13 @@ def load_library() -> ctypes.CDLL:
         t0 = time.perf_counter()
         srcs, deps = _sources()
         so = BUILD_ROOT / _digest(srcs + deps) / LIB_NAME
+        log_path = so.with_name("nvcc.log")  # ptxas's report, read again by a cached load
         built = not so.exists()
-        log = _compile(find_nvcc(), srcs, so) if built else ""
+        if built:
+            log = _compile(find_nvcc(), srcs, so)
+            log_path.write_text(log)
+        else:
+            log = log_path.read_text() if log_path.exists() else ""
         lib = ctypes.CDLL(str(so))
         _bind(lib)
         _info.update(

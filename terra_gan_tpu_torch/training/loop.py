@@ -27,7 +27,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from ..config import TrainingConfig
+from ..config import LoopConfig
 from ..data.dataset import BatchLoader, InpaintingDataset
 from ..models.vgg import VGG16Features
 from .checkpoint import export_pth
@@ -47,7 +47,7 @@ def train(
     img_dir: str | Path,
     mask_dir: str | Path,
     state: GANTrainState,
-    config: Optional[TrainingConfig] = None,
+    config: Optional[LoopConfig] = None,
     checkpoint_path: Optional[str | Path] = None,
     val_img_dir: Optional[str | Path] = None,
     val_mask_dir: Optional[str | Path] = None,
@@ -65,7 +65,7 @@ def train(
     'final_epoch', 'state'} (the reference's contract and the state) and
     'history', one dict of epoch means and times per epoch.
     """
-    config = config or TrainingConfig()
+    config = config or LoopConfig()
     loss_cfg = config.loss_config()
     dev = state.device
     for opt in (state.g_opt, state.d_opt):

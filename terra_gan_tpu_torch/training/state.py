@@ -14,7 +14,7 @@ from dataclasses import dataclass
 
 import torch
 
-from ..config import TrainingConfig
+from ..config import LoopConfig
 from ..models.discriminator import Discriminator
 from ..models.generator import PConvUNet
 
@@ -37,7 +37,7 @@ class GANTrainState:
         cls,
         generator: PConvUNet,
         discriminator: Discriminator,
-        lr: float = TrainingConfig.learning_rate,
+        lr: float = LoopConfig.learning_rate,
     ) -> "GANTrainState":
         """Both networks in train mode, on the device they are on, with fresh
         Adams (``train`` sets their rate to its config's)."""

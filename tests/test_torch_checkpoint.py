@@ -13,6 +13,7 @@ JAX package then reads.
 from __future__ import annotations
 
 import logging
+from dataclasses import asdict
 
 import numpy as np
 import pytest
@@ -28,7 +29,7 @@ from terra_gan_tpu.models import Discriminator as JD
 from terra_gan_tpu.models import PConvUNet as JG
 from terra_gan_tpu.training import checkpoint as jckpt
 from terra_gan_tpu.training.state import GANTrainState as JState
-from terra_gan_tpu_torch.config import TrainingConfig
+from terra_gan_tpu_torch.config import LoopConfig, TrainingConfig
 from terra_gan_tpu_torch.data.dataset import BatchLoader, InpaintingDataset
 from terra_gan_tpu_torch.models import PConvUNet
 from terra_gan_tpu_torch.training import loop
@@ -165,7 +166,7 @@ def test_train_writes_a_best_checkpoint_that_jax_reads(jax_template, tmp_path):
     val_dirs = write_tiles(tmp_path / "val", 2, seed=7)
     state = port_state(2)
     best = tmp_path / "ckpt" / "best.pth"
-    result = loop.train(*train_dirs, state, TrainingConfig(epochs=2, batch_size=4), best,
+    result = loop.train(*train_dirs, state, LoopConfig(epochs=2, batch_size=4), best,
                         *val_dirs, image_size=HW, seed=1)
     assert [r["steps"] for r in result["history"]] == [2, 2] and state.step == 4
     assert result["final_epoch"] == 1 and np.isfinite(result["best_val_loss"])
@@ -193,7 +194,7 @@ def test_train_runs_at_the_configs_learning_rate(tmp_path):
     state = port_state(6)  # Adams built at the default 2e-4
     before = {n: p.detach().clone() for n, p in state.generator.named_parameters()}
     best = tmp_path / "ckpt" / "best.pth"
-    loop.train(*dirs, state, TrainingConfig(epochs=1, batch_size=2, learning_rate=1e-3), best,
+    loop.train(*dirs, state, LoopConfig(epochs=1, batch_size=2, learning_rate=1e-3), best,
                image_size=HW)
     assert state.step == 1
     # Adam's first step moves a weight by about lr * sign(grad)
@@ -224,7 +225,7 @@ def test_train_skips_a_failed_step_and_raises_when_every_step_fails(tmp_path, mo
 
     monkeypatch.setattr(loop, "make_train_step", failing_first)
     state = port_state(4)
-    result = loop.train(*dirs, state, TrainingConfig(epochs=1, batch_size=2), image_size=HW)
+    result = loop.train(*dirs, state, LoopConfig(epochs=1, batch_size=2), image_size=HW)
     assert result["history"][0]["steps"] == 1 and state.step == 1
     assert result["best_val_loss"] is None
 
@@ -235,16 +236,20 @@ def test_train_skips_a_failed_step_and_raises_when_every_step_fails(tmp_path, mo
 
     monkeypatch.setattr(loop, "make_train_step", always)
     with pytest.raises(RuntimeError, match="no progress"):
-        loop.train(*dirs, port_state(5), TrainingConfig(epochs=1, batch_size=2), image_size=HW)
+        loop.train(*dirs, port_state(5), LoopConfig(epochs=1, batch_size=2), image_size=HW)
 
 
 def test_training_config_has_the_jax_defaults():
     from terra_gan_tpu.config import TrainingConfig as JTrainingConfig
 
-    ours, theirs = TrainingConfig(), JTrainingConfig()
-    init = theirs.initial
-    assert (ours.epochs, ours.batch_size, ours.learning_rate, ours.log_interval,
-            ours.checkpoint_interval) == (init.epochs, init.batch_size, init.learning_rate,
-                                          init.log_interval, init.checkpoint_interval)
-    assert (ours.perceptual, ours.tv) == (theirs.loss_weights.perceptual, theirs.loss_weights.tv)
-    assert ours.boundary == theirs.effective_boundary_weight() == 0.5
+    theirs = JTrainingConfig()
+    assert asdict(TrainingConfig()) == asdict(theirs)
+    # the loop's flat view, by default and as derived from the nested section
+    for ours in (LoopConfig(), LoopConfig.from_training(TrainingConfig())):
+        init = theirs.initial
+        assert (ours.epochs, ours.batch_size, ours.learning_rate, ours.log_interval,
+                ours.checkpoint_interval) == (init.epochs, init.batch_size, init.learning_rate,
+                                              init.log_interval, init.checkpoint_interval)
+        assert (ours.perceptual, ours.tv) == (theirs.loss_weights.perceptual,
+                                              theirs.loss_weights.tv)
+        assert ours.boundary == theirs.effective_boundary_weight() == 0.5

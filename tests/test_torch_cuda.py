@@ -29,7 +29,15 @@ from terra_gan_tpu_torch.ops.cuda.upsample_kernel import (
 )
 from terra_gan_tpu_torch.ops.cuda.tail_kernel import fused_decoder_tail, fused_decoder_tail_plain
 from terra_gan_tpu_torch.ops.resize import upsample2x_bilinear
+from terra_gan_tpu_torch.cli import doctor
+from terra_gan_tpu_torch.cli.probe_cuda import probe_cases, probe_inputs
 from terra_gan_tpu_torch.evaluation.inference import OUTPUT_SIZE, evaluate
+from terra_gan_tpu_torch.ops.cuda.probe_kernels import (
+    PLAIN,
+    probe_lane_concat_dot,
+    probe_lane_reduce,
+    probe_mask_broadcast,
+)
 from terra_gan_tpu_torch.parallel.infer import BatchedInpainter
 from terra_gan_tpu_torch.training.state import GANTrainState
 from terra_gan_tpu_torch.training.step import make_train_step
@@ -348,3 +356,45 @@ def test_model_fused_tail_matches_the_unfused_path(card):
     assert nrmse(got, want) <= NRMSE_TOL
     assert nrmse(got, plain) <= NRMSE_TOL
     assert odd_counts == [0, 14, 7] and odd.shape == (2, 127, 127, 1)
+
+
+@pytest.mark.parametrize("case", range(5))
+def test_probe_kernel_matches_its_plain_version(card, case):
+    # probe_mosaic's own inputs, then odd shapes: 3 leading dims, C and N
+    # not multiples of the tiles, and a single row
+    _, fn, np_args, _, _ = probe_cases(*probe_inputs())[case]
+    g = np.random.default_rng(case)
+    a = g.random((3, 5, 7, 33), dtype=np.float32)
+    odd = {"probe_lane_reduce": (a, a[0, 0, 0]),
+           "probe_matvec_dot": (a, g.random((33, 1), dtype=np.float32)),
+           "probe_lane_concat_dot": (a, g.random((66, 37), dtype=np.float32)),
+           "probe_mask_broadcast": (a, a[..., 0]), "probe_row_build": (a[:1],)}
+    for args in (np_args, odd[fn.__name__]):
+        ts = [torch.from_numpy(np.ascontiguousarray(x)).to(card) for x in args]
+        before = fn.launches
+        got = fn(*ts)
+        want = PLAIN[fn](*ts)
+        torch.cuda.synchronize()
+        assert fn.launches == before + 1
+        assert got.shape == want.shape
+        if fn.__name__ in ("probe_mask_broadcast", "probe_row_build"):
+            assert torch.equal(got, want)
+        else:
+            assert (got - want).abs().max().item() <= 1e-6 * want.abs().max().item()
+
+
+def test_probe_kernels_refuse_what_they_do_not_take(card):
+    a = torch.rand((4, 8, 16), device=card)
+    with pytest.raises(ValueError, match="float32"):
+        probe_lane_reduce(a.double(), torch.rand(16, device=card).double())
+    with pytest.raises(ValueError, match="contiguous"):
+        probe_mask_broadcast(a.transpose(0, 1), torch.rand((8, 4), device=card))
+    with pytest.raises(ValueError, match="k2"):
+        probe_lane_concat_dot(a, torch.rand((16, 4), device=card))
+
+
+def test_doctor_passes_on_the_card(card, capsys):
+    assert doctor.main([]) == 0
+    out = capsys.readouterr().out
+    assert "[FAIL" not in out and "[WARN" not in out
+    assert out.count(" OK maxerr=") == 5
