@@ -4,9 +4,17 @@
 
 Phases, one line of figures each (any failure raises and exits nonzero):
   1. environment: card, power limit, torch and CUDA versions, TF32 off;
-  2. build: the kernels of terra_gan_tpu_torch/csrc with nvcc (sm_90a);
+  2. build: the kernels of terra_gan_tpu_torch/csrc with nvcc (sm_90a),
+     and per kernel ptxas's registers, spills and static shared memory
+     and the tensor-core instructions (HMMA, HGMMA) in its SASS
+     (cuobjdump -sass); K2's MMA kernels must have some, and no K2
+     kernel may spill;
   3. K2 fused_pconv_eval against its plain version at the 14 stage
-     geometries of the full-width (base_width=64) 512^2 PConvUNet, batch 2;
+     geometries of the full-width (base_width=64) 512^2 PConvUNet, batch 2,
+     with the model's cached weight planes: per stage its variant
+     (3xTF32 MMA, split-K or SIMT), split count, TFLOP/s, and the time
+     of one cuDNN fp32 conv of the same masked input (channels_last, the
+     yardstick: the conv alone); two calls must be bitwise equal;
   4. K1 upsample2x_fwd against its plain version at the 7 decoder
      shapes, fp32 (torch's bits) and bf16; its fp32 times at batch 8 too;
   5. K1 upsample2x_bwd against torch's own upsample backward at the same
@@ -15,7 +23,7 @@ Phases, one line of figures each (any failure raises and exits nonzero):
      BatchedInpainter(chunk=8) with seeded random weights, held against
      the same model's plain path on the composite and on dec2's
      features, with the kernels' launch counts (13 K2, 6 K1 and 1 K3 a
-     forward); the same feature check must fail the plain path run in
+     forward; K2's launches by variant); the same feature check must fail the plain path run in
      TF32, which shows it can see an error of that size;
   7. files: evaluate on one PNG tile, then inpaint_directory end to end
      on a directory of 512^2 PNGs;
@@ -58,8 +66,10 @@ Phases, one line of figures each (any failure raises and exits nonzero):
      colored PNG the LUT of its inpainted one, 13 K2, 6 K1 and 1 K3
      launches a forward; ``--mode train`` exits 2.
 Then a JSON line of per-kernel figures (each with its bound: the larger
-of its bytes over 3.35 TB/s and its operations over the 67 TFLOP/s of
-fp32 outside the tensor cores, from this run's shapes), and last
+of its bytes over 3.35 TB/s and its operations over the peak of the
+unit it runs on, from this run's shapes: the 67 TFLOP/s of fp32 outside
+the tensor cores, or for K2's MMA stages 495 TFLOP/s of dense TF32 over
+the 3 TF32 products of each fp32 product), and last
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Without CUDA it exits nonzero before printing any result.
 """
@@ -91,12 +101,15 @@ from terra_gan_tpu_torch.cli import doctor, main_pipeline
 from terra_gan_tpu_torch.cli.probe_cuda import probe_cases, probe_inputs, run_probes
 from terra_gan_tpu_torch.data.visualization import build_lut
 from terra_gan_tpu_torch.evaluation.inference import OUTPUT_SIZE, evaluate, inpaint_directory
-from terra_gan_tpu_torch.ops.cuda._build import build_info, load_library
+from terra_gan_tpu_torch.ops.cuda._build import build_info, find_nvcc, load_library
 from terra_gan_tpu_torch.ops.cuda.probe_kernels import PLAIN, PROBES, empty_launch
 from terra_gan_tpu_torch.ops.cuda.pconv_kernel import (
+    MMA_TILES,
     fold_batch_norm,
     fused_pconv_eval,
     fused_pconv_eval_plain,
+    plan_stage,
+    sm_count,
 )
 from terra_gan_tpu_torch.config import LoopConfig
 from terra_gan_tpu_torch.ops.cuda.upsample_kernel import (
@@ -159,9 +172,16 @@ CLI_GRIDS, CLI_TILES = ("NJ05", "SU12"), 8
 PROBE_REPLACES = {"probe_lane_reduce": 45, "probe_matvec_dot": 66, "probe_lane_concat_dot": 91,
                   "probe_mask_broadcast": 117, "probe_row_build": 138}
 # the card's peaks (NVIDIA's H100 SXM data sheet): fp32 outside the tensor
-# cores and device memory; a kernel's bound is the larger of its two times
+# cores, dense TF32 on them, and device memory; a kernel's bound is the
+# larger of its two times. K2's MMA variant makes each fp32 product of 3
+# TF32 products (3xTF32), so its operations run at a third of the TF32 rate.
 FP32_FLOPS = 67e12
+TF32_FLOPS = 495e12
+K2_MMA_FLOPS = TF32_FLOPS / 3
 HBM_BYTES_PER_S = 3.35e12
+PEAKS = {"fp32": "fp32 outside the tensor cores, 67 TFLOP/s",
+         "k2": "3xTF32: 3 TF32 products per fp32 product at 495 TFLOP/s (165 TFLOP/s of fp32 "
+               "products) for the MMA stages; 67 TFLOP/s fp32 for the SIMT stage (enc1)"}
 
 
 def require(cond: bool, msg: str) -> None:
@@ -171,6 +191,22 @@ def require(cond: bool, msg: str) -> None:
 
 def line(phase: str, **fields) -> None:
     print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in fields.items()), flush=True)
+
+
+def reset_counts(counters) -> None:
+    """Every kernel's launch count (and K2's counts by variant) to 0."""
+    for fn in counters:
+        fn.launches = 0
+        if hasattr(fn, "variants"):
+            fn.variants = dict.fromkeys(fn.variants, 0)
+
+
+def read_counts(counters) -> dict:
+    """{kernel: launches}, and K2's launches by variant as "kernel.variant"."""
+    out = {fn.__name__: fn.launches for fn in counters}
+    for fn in counters:
+        out.update({f"{fn.__name__}.{v}": n for v, n in getattr(fn, "variants", {}).items()})
+    return out
 
 
 def time_ms(fn, reps: int = REPS, warmup: int = 2) -> float:
@@ -189,9 +225,23 @@ def time_ms(fn, reps: int = REPS, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
-def bound(flop: float, nbytes: float) -> dict:
-    """The least time the card could take for the work, and what bounds it."""
-    t_ops, t_bytes = flop / FP32_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+def host_ms(fn, reps: int = REPS) -> float:
+    """Median host time of one call on an idle card: the wrapper's own cost
+    (checks, allocation, the launch), since the kernel runs asynchronously."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
+def bound(flop: float, nbytes: float, peak: float = FP32_FLOPS) -> dict:
+    """The least time the card could take for the work at the unit's
+    ``peak`` FLOP/s, and what bounds it."""
+    t_ops, t_bytes = flop / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
     return {"bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
 
@@ -248,51 +298,144 @@ def phase_env():
     return kind, smi
 
 
+def kernel_report(info) -> dict:
+    """Per kernel of the built library (mangled name): registers, spilled
+    bytes and static shared memory from ptxas's report, and the count of
+    tensor-core instructions (HMMA, HGMMA) in its SASS (cuobjdump -sass)."""
+    report, fn = {}, None
+    for ln in str(info["log"]).splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)", ln)
+        if m:
+            fn = m.group(1)
+            report.setdefault(fn, {})
+        elif fn and "spill stores" in ln:
+            st, ld = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln).groups()
+            report[fn]["spill_bytes"] = int(st) + int(ld)
+        elif fn and "Used" in ln and "registers" in ln:
+            report[fn]["registers"] = int(re.search(r"Used (\d+) registers", ln).group(1))
+            smem = re.search(r"(\d+) bytes smem", ln)
+            report[fn]["smem"] = int(smem.group(1)) if smem else 0
+    cuobjdump = Path(find_nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", info["path"]], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    fn = None
+    for ln in sass.splitlines():
+        m = re.match(r"\s*Function : (\S+)", ln)
+        if m:
+            fn = m.group(1)
+            report.setdefault(fn, {}).update(hmma=0, hgmma=0)
+        elif fn and "HGMMA" in ln:
+            report[fn]["hgmma"] += 1
+        elif fn and "HMMA" in ln:
+            report[fn]["hmma"] += 1
+    return report
+
+
 def phase_build():
-    load_library()
+    lib = load_library()
     info = build_info()
     line("build", built=info["built"], seconds=f"{info['seconds']:.1f}",
          sources=",".join(info["sources"]), flags=repr(" ".join(info["flags"])),
          lib=info["path"])
-    for ln in str(info["log"]).splitlines():
-        if "Used" in ln or "spill" in ln:
-            print("  ptxas:", ln.strip(), flush=True)
+    report = kernel_report(info)
+    for fn, r in sorted(report.items()):
+        line("build", kernel=fn, registers=r.get("registers"), spill_bytes=r.get("spill_bytes"),
+             static_smem=r.get("smem"), hmma=r.get("hmma"), hgmma=r.get("hgmma"))
+    for tile, (bm, bn) in enumerate(MMA_TILES):
+        line("build", k2_mma_tile=f"{bm}x{bn}", dynamic_smem_k3=lib.tg_pconv_mma_smem_bytes(tile, 3),
+             dynamic_smem_k5=lib.tg_pconv_mma_smem_bytes(tile, 5))
+    k2 = {fn: r for fn, r in report.items() if "pconv" in fn}
+    mma = [r for fn, r in k2.items() if "pconv_mma_kernel" in fn]
+    require(len(mma) == len(MMA_TILES) and all(r.get("hmma", 0) + r.get("hgmma", 0) > 0
+                                               for r in mma),
+            f"build: K2's MMA kernels show no tensor-core instructions: {k2}")
+    require(all(r.get("spill_bytes") == 0 for r in k2.values()), f"build: a K2 kernel spills: {k2}")
+
+
+def stage_inputs(st, h: int, ca: int, cb: int, batch: int, gen, dev):
+    """Seeded inputs of one stage, with the model's weights and cached planes."""
+    x = torch.rand((batch, h, h, ca), generator=gen).to(dev)
+    xs = torch.rand((batch, h, h, cb), generator=gen).to(dev) if cb else None
+    m = holey_mask(batch, h, h, gen, dev)
+    weight, bias = st.input_conv.weight.detach(), st.input_conv.bias.detach()
+    a, bb = fold_batch_norm(st.bn.weight.detach(), st.bn.bias.detach(),
+                            st.bn.running_mean, st.bn.running_var, st.bn.eps)
+    return (x, m, weight, bias, st.stride, st.padding, a, bb), xs, st.packed_weight()
+
+
+def k2_stage(args, xs, packed, reps: int = REPS) -> dict:
+    """One K2 stage measured against its plain version and its yardstick,
+    one cuDNN fp32 conv of the same masked input (channels_last, TF32
+    off): the variant, tile and splits of its plan, the error, bitwise
+    reproducibility, times, the wrapper's host time a call, TFLOP/s and
+    the bound at its unit's peak."""
+    x, m, weight, bias, stride, padding = args[:6]
+    got, got_m = fused_pconv_eval(*args, x_skip=xs, packed=packed)
+    again, again_m = fused_pconv_eval(*args, x_skip=xs, packed=packed)
+    want, want_m = fused_pconv_eval_plain(*args, x_skip=xs)
+    xm = (x if xs is None else torch.cat([x, xs], -1)) * m
+    xm_cl = xm.permute(0, 3, 1, 2)  # NCHW in channels_last memory
+    w_cl = weight.contiguous(memory_format=torch.channels_last)
+    torch.cuda.synchronize()
+    t_k = time_ms(lambda: fused_pconv_eval(*args, x_skip=xs, packed=packed), reps)
+    t_p = time_ms(lambda: fused_pconv_eval_plain(*args, x_skip=xs), reps)
+    t_l = time_ms(lambda: F.conv2d(xm_cl, w_cl, bias, stride, padding), reps)
+    t_h = host_ms(lambda: fused_pconv_eval(*args, x_skip=xs, packed=packed), reps)
+    b, oh, ow, cout = got.shape
+    plan = plan_stage(b * oh * ow, cout, x.shape[-1], 0 if xs is None else xs.shape[-1],
+                      weight.shape[-1], sm_count(x.device))
+    flop = 2.0 * got.numel() * weight[0].numel()
+    peak = FP32_FLOPS if plan.variant == "simt" else K2_MMA_FLOPS
+    err = (got - want).abs().max().item()
+    return dict(variant=plan.variant, splits=plan.splits,
+                tile="-" if plan.tile < 0 else "x".join(map(str, MMA_TILES[plan.tile])),
+                max_abs_err=err, scale=want.abs().max().item(),
+                masks_equal=torch.equal(got_m, want_m), holes=int((want_m == 0).sum()),
+                bitwise=torch.equal(got, again) and torch.equal(got_m, again_m),
+                finite=torch.isfinite(got).all().item(), out="x".join(map(str, got.shape)),
+                ms=t_k, plain_ms=t_p, library_ms=t_l, host_ms=t_h, flop=flop,
+                tflops=flop / t_k / 1e9,
+                **bound(flop, nbytes(x, xs, m, weight, bias, *args[6:], got, got_m), peak))
+
+
+def sum_bounds(rows) -> dict:
+    """The bound of a sequence of stages: the sum of theirs, bound by what
+    bounds the larger share of it."""
+    total = sum(r["bound_ms"] for r in rows)
+    ops = sum(r["bound_ms"] for r in rows if r["bound_by"] == "operations")
+    return {"bound_ms": total, "bound_by": "operations" if 2 * ops >= total else "bytes"}
 
 
 def phase_k2(model, dev):
     gen = torch.Generator().manual_seed(SEED + 1)
-    worst_abs, ms, plain_ms, flop, moved = 0.0, 0.0, 0.0, 0.0, 0
+    rows = []
     for name, h, ca, cb, st in stage_geometries(model, SIZE):
-        x = torch.rand((STAGE_BATCH, h, h, ca), generator=gen).to(dev)
-        xs = torch.rand((STAGE_BATCH, h, h, cb), generator=gen).to(dev) if cb else None
-        m = holey_mask(STAGE_BATCH, h, h, gen, dev)
-        weight, bias = st.input_conv.weight.detach(), st.input_conv.bias.detach()
-        a, bb = fold_batch_norm(st.bn.weight.detach(), st.bn.bias.detach(),
-                                st.bn.running_mean, st.bn.running_var, st.bn.eps)
-        args = (x, m, weight, bias, st.stride, st.padding, a, bb)
-        got, got_m = fused_pconv_eval(*args, x_skip=xs)
-        want, want_m = fused_pconv_eval_plain(*args, x_skip=xs)
-        torch.cuda.synchronize()
-        err = (got - want).abs().max().item()
-        scale = want.abs().max().item()
-        masks_equal = torch.equal(got_m, want_m)
-        t_k = time_ms(lambda: fused_pconv_eval(*args, x_skip=xs))
-        t_p = time_ms(lambda: fused_pconv_eval_plain(*args, x_skip=xs))
-        k = weight.shape[-1]
-        line("k2", stage=name, x=f"{STAGE_BATCH}x{h}x{h}x{ca}+{cb}",
-             out="x".join(map(str, got.shape)), k=k, s=st.stride,
-             max_abs_err=f"{err:.3e}", rel=f"{err / max(scale, 1e-30):.3e}",
-             masks_equal=masks_equal, holes=int((want_m == 0).sum()),
-             ms=f"{t_k:.4f}", plain_ms=f"{t_p:.4f}")
-        require(torch.isfinite(got).all().item(), f"K2 {name}: non-finite output")
-        require(err <= K2_REL_TOL * scale, f"K2 {name}: err {err} > {K2_REL_TOL} * {scale}")
-        require(masks_equal, f"K2 {name}: new_mask differs from the plain version")
-        worst_abs, ms, plain_ms = max(worst_abs, err), ms + t_k, plain_ms + t_p
-        flop += 2.0 * got.numel() * weight[0].numel()
-        moved += nbytes(x, xs, m, weight, bias, a, bb, got, got_m)
-    # no one PyTorch call computes a PConv stage (conv, box-sum, renorm, BN, ReLU)
-    return dict(max_abs_err=worst_abs, ms=ms, plain_ms=plain_ms, **bound(flop, moved),
-                library_ms=None)
+        args, xs, packed = stage_inputs(st, h, ca, cb, STAGE_BATCH, gen, dev)
+        r = k2_stage(args, xs, packed)
+        rel = r["max_abs_err"] / max(r["scale"], 1e-30)
+        line("k2", stage=name, x=f"{STAGE_BATCH}x{h}x{h}x{ca}+{cb}", out=r["out"],
+             k=st.input_conv.kernel_size[0], s=st.stride, variant=r["variant"], tile=r["tile"],
+             splits=r["splits"], max_abs_err=f"{r['max_abs_err']:.3e}", rel=f"{rel:.3e}",
+             masks_equal=r["masks_equal"], bitwise=r["bitwise"], holes=r["holes"],
+             ms=f"{r['ms']:.4f}", plain_ms=f"{r['plain_ms']:.4f}",
+             library_ms=f"{r['library_ms']:.4f}", host_ms=f"{r['host_ms']:.4f}",
+             tflops=f"{r['tflops']:.2f}", bound_ms=f"{r['bound_ms']:.4f}",
+             bound_by=r["bound_by"])
+        require(r["finite"], f"K2 {name}: non-finite output")
+        require(r["max_abs_err"] <= K2_REL_TOL * r["scale"],
+                f"K2 {name}: err {r['max_abs_err']} > {K2_REL_TOL} * {r['scale']}")
+        require(r["masks_equal"], f"K2 {name}: new_mask differs from the plain version")
+        require(r["bitwise"], f"K2 {name}: two calls on the same inputs differ")
+        rows.append(r)
+    fig = dict(max_abs_err=max(r["max_abs_err"] for r in rows),
+               ms=sum(r["ms"] for r in rows), plain_ms=sum(r["plain_ms"] for r in rows),
+               library_ms=sum(r["library_ms"] for r in rows), **sum_bounds(rows))
+    flop = sum(r["flop"] for r in rows)
+    line("k2", stages=len(rows), ms=f"{fig['ms']:.4f}", plain_ms=f"{fig['plain_ms']:.4f}",
+         library_ms=f"{fig['library_ms']:.4f}", gflop=f"{flop / 1e9:.2f}",
+         tflops=f"{flop / fig['ms'] / 1e9:.2f}", bound_ms=f"{fig['bound_ms']:.4f}",
+         bound_by=fig["bound_by"], vs_bound=f"{fig['ms'] / fig['bound_ms']:.2f}")
+    return fig
 
 
 def _bf16_ulp(v: torch.Tensor) -> torch.Tensor:
@@ -434,15 +577,14 @@ def phase_slice(model, dev, counters):
     inp_f(imgs[:CHUNK], masks[:CHUNK])  # warm-up: caches, cuDNN plans
     torch.cuda.synchronize()
 
-    for fn in counters:
-        fn.launches = 0
+    reset_counts(counters)
     t0 = time.perf_counter()
     with dec2_features(model) as got_feat:
         out_f = np.concatenate([o for _, o in inp_f.stream_from(iter(chunks))])
     t1 = time.perf_counter()
     out_u8 = np.concatenate([o for _, o in inp_u8.stream_from(iter(chunks))])
     t2 = time.perf_counter()
-    launches = {fn.__name__: fn.launches for fn in counters}
+    launches = read_counts(counters)
     forwards = 2 * len(chunks)
 
     want_f, want_u8 = [], []
@@ -473,6 +615,7 @@ def phase_slice(model, dev, counters):
          dec2_std=f"{torch.cat(want_feat).std().item():.4f}", forwards=forwards,
          k2_launches=launches["fused_pconv_eval"], k1_launches=launches["upsample2x_fwd"],
          k3_launches=launches["fused_decoder_tail"],
+         k2_variants={v: launches[f"fused_pconv_eval.{v}"] for v in fused_pconv_eval.variants},
          float_tiles_per_s=f"{N_TILES / (t1 - t0):.2f}",
          u8_tiles_per_s=f"{N_TILES / (t2 - t1):.2f}",
          peak_mem_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}")
@@ -489,6 +632,11 @@ def phase_slice(model, dev, counters):
             "fused_decoder_tail": 1}
     require(all(launches[k] == v * forwards for k, v in want.items()),
             f"slice: launches {launches} in {forwards} forwards, want {want} each")
+    # every stage is one launch of one variant, a split stage's sum the second
+    v = {k.split(".")[1]: n for k, n in launches.items() if k.startswith("fused_pconv_eval.")}
+    require(v["simt"] == forwards and v["simt"] + v["mma"] + v["mma_split"] == 13 * forwards
+            and v["split_reduce"] == v["mma_split"] > 0,
+            f"slice: K2 variants {v} in {forwards} forwards: enc1 SIMT, the rest MMA, some split")
     return launches
 
 
@@ -503,8 +651,7 @@ def phase_files(model, dev, counters):
         for i in range(N_FILES):
             Image.fromarray(imgs[i, ..., 0]).save(root / "images" / f"t{i:03d}.png")
             Image.fromarray(masks[i, ..., 0]).save(root / "masks" / f"t{i:03d}_mask_resized.png")
-        for fn in counters:
-            fn.launches = 0
+        reset_counts(counters)
         one = evaluate(root / "images" / "t000.png", root / "masks" / "t000_mask_resized.png",
                        model, root / "one.png")
         one_launches = tuple(fn.launches for fn in counters)
@@ -553,15 +700,14 @@ def phase_train(dev, counters):
         best = root / "ckpt" / "best.pth"
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        for fn in counters:
-            fn.launches = 0
+        reset_counts(counters)
         t0 = time.perf_counter()
         result = train(root / "train" / "images", root / "train" / "masks", state, cfg,
                        checkpoint_path=best, val_img_dir=root / "val" / "images",
                        val_mask_dir=root / "val" / "masks", vgg=vgg, image_size=SIZE, seed=SEED)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        launches = {fn.__name__: fn.launches for fn in counters}
+        launches = read_counts(counters)
         peak = torch.cuda.max_memory_allocated()
 
         fresh, _ = train_state(SEED + 7, dev)
@@ -849,8 +995,7 @@ def phase_serve(dev, counters):
             lat[i] = (time.perf_counter() - t) * 1e3
 
         batches0 = service.batcher.snapshot()["batches"]
-        for fn in counters:
-            fn.launches = 0
+        reset_counts(counters)
         t0 = time.perf_counter()
         workers = [threading.Thread(target=one, args=(i,)) for i in range(SERVE_REQUESTS)]
         for w in workers:
@@ -860,7 +1005,7 @@ def phase_serve(dev, counters):
         seconds = time.perf_counter() - t0
         outs[SERVE_REQUESTS:] = client.inpaint_batch(
             [(imgs[i], masks[i]) for i in range(SERVE_REQUESTS, n)])
-        launches = {fn.__name__: fn.launches for fn in counters}
+        launches = read_counts(counters)
         forwards = service.batcher.snapshot()["batches"] - batches0
         stats = client.stats()
         token = jwt_auth.encode({"sub": "chip-smoke"}, SERVE_SECRET, expires_in=300)
@@ -978,11 +1123,10 @@ def phase_doctor(counters):
     """doctor.main([]) on the card: exit 0, no FAIL or WARN on the rows the
     card decides, and all five probes OK."""
     out = io.StringIO()
-    for fn in counters:
-        fn.launches = 0
+    reset_counts(counters)
     with contextlib.redirect_stdout(out):
         code = doctor.main([])
-    launches = {fn.__name__: fn.launches for fn in counters}
+    launches = read_counts(counters)
     text = out.getvalue()
     print(text, end="", flush=True)
     rows = dict((name, status) for status, name in re.findall(r"\[(\w+)\s*\] (\S+)", text))
@@ -1033,13 +1177,12 @@ def phase_cli(dev, counters):
                 stem = f"{grid.lower()}{i:02d}{i:02d}"
                 Image.fromarray(imgs[i, ..., 0]).save(split / "images" / f"{stem}.png")
                 Image.fromarray(masks[i, ..., 0]).save(split / "masks" / f"{stem}_mask_resized.png")
-        for fn in counters:
-            fn.launches = 0
+        reset_counts(counters)
         t0 = time.perf_counter()
         try:
             code = main_pipeline.main(["--mode", "evaluate", "--config", "config.yaml"])
             seconds = time.perf_counter() - t0
-            launches = {fn.__name__: fn.launches for fn in counters}
+            launches = read_counts(counters)
             train_code = main_pipeline.main(["--mode", "train", "--config", "config.yaml"])
         finally:
             for h in logging.root.handlers[:]:  # the CLI's log file lives in tmp
@@ -1096,7 +1239,7 @@ def main() -> None:
     figures.update(phase_probes(dev))
     runs.append(phase_doctor(counters + PROBES))
     runs.append(phase_cli(dev, counters + PROBES))
-    launches = {fn.__name__: 0 for fn in counters + PROBES}
+    launches = dict.fromkeys(read_counts(counters + PROBES), 0)
     for run in runs:
         for name, n in run.items():
             launches[name] += n
@@ -1113,9 +1256,12 @@ def main() -> None:
             f"a kernel of the main paths was never launched there: {launches}")
     kernels = [
         {"name": name, "route": "cuda", "source": f"terra_gan_tpu_torch/csrc/{src}",
-         "replaces": replaces, "launches": launches[name], **figures[name]}
+         "replaces": replaces, "launches": launches[name], **figures[name],
+         "peak": PEAKS["k2" if name == "fused_pconv_eval" else "fp32"]}
         for name, (src, replaces) in sources.items()
     ]
+    kernels[0]["variants"] = {v: launches[f"fused_pconv_eval.{v}"]
+                              for v in fused_pconv_eval.variants}
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)

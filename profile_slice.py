@@ -14,9 +14,15 @@ leg measures
   3. a torch.profiler trace of the end-to-end run at chunk 8: device
      busy time (union of the device events), the idle share of the
      host's window, and device time by kernel name;
-  4. K2 at each of the 14 stages at batch 8, kernel and plain ms and
-     the achieved TFLOP/s, and the wrapper's share in it: the copy of
-     nn.Conv2d's weight into the kernel's HWIO layout, timed alone;
+  4. K2 at each of the 14 stages at batch 1 and 8 (chip_smoke.k2_stage):
+     its variant, tile and split count, kernel, plain and library ms
+     (one cuDNN fp32 conv of the same masked input, channels_last), the
+     TFLOP/s of each, the bound at the unit's peak, the wrapper's host
+     time a call; the packing of the weight into K2's TF32 planes,
+     timed alone (the model caches it, a raw call pays it); and, for
+     the MMA stages, the planned kernel, the kernel on the other tile
+     and, where the plan splits K, unsplit, each through the C entry
+     called directly (the reasons for plan_stage's choices);
   5. the tail per call at batch 1, 8 and 32 on the model's own dec2
      outputs: K3 (the model's eval tail), its plain version and the
      unfused kernel path it replaces (K1, K2's dec1, cuDNN's final conv,
@@ -44,7 +50,9 @@ the card) measures
      and the achieved bytes/s.
 
 It prints one line per figure and writes all of them as JSON to --out
-(and the traces beside it). Without CUDA it exits nonzero.
+(and the traces beside it); --legs picks some of the legs (inference,
+stage, tail, serve, train; all by default). Without CUDA it exits
+nonzero.
 """
 
 from __future__ import annotations
@@ -63,9 +71,9 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from chip_smoke import (
-    SEED, SIZE, WIDTH, bound, dec2_outputs, device_batch, dsm_tiles, holey_mask, line, nbytes,
-    phase_build, phase_env, stage_geometries, time_ms, train_state, unfused_forward,
-    upsample_shapes,
+    SEED, SIZE, WIDTH, bound, dec2_outputs, device_batch, dsm_tiles, k2_stage, line,
+    phase_build, phase_env, stage_geometries, stage_inputs, sum_bounds, time_ms, train_state,
+    unfused_forward, upsample_shapes,
 )
 from terra_gan_tpu_torch.evaluation.inference import OUTPUT_SIZE
 from terra_gan_tpu_torch.ops.cuda.tail_kernel import fused_decoder_tail, fused_decoder_tail_plain
@@ -73,10 +81,13 @@ from terra_gan_tpu_torch.ops.resize import upsample2x_bilinear
 from terra_gan_tpu_torch.serving import InpaintClient, InpaintService, make_server
 from terra_gan_tpu_torch.ops.cuda.upsample_kernel import upsample2x_bwd, upsample2x_bwd_plain
 from terra_gan_tpu_torch.training.step import make_train_step
+from terra_gan_tpu_torch.ops.cuda._build import check, load_library
 from terra_gan_tpu_torch.ops.cuda.pconv_kernel import (
-    fold_batch_norm,
+    MMA_TILES,
     fused_pconv_eval,
-    fused_pconv_eval_plain,
+    pack_pconv_weight,
+    plan_stage,
+    sm_count,
 )
 from terra_gan_tpu_torch.parallel.infer import BatchedInpainter
 from terra_gan_tpu_torch.utils.weights import init_generator
@@ -87,7 +98,9 @@ SERVE_MAX_BATCH = 16
 SERVE_LOADS = ((1, 16), (16, 64))  # (concurrency, requests)
 CHUNKS = (8, 16, 32)
 E2E_TILES = 32
-STAGE_BATCH = 8
+STAGE_BATCHES = (1, 8)
+K1_BWD_BATCH = 8
+LEGS = ("inference", "stage", "tail", "serve", "train")
 TRAIN_BATCHES = (8, 16, 32)
 TRAIN_STEPS = 5
 TRACE_STEPS = 3
@@ -170,33 +183,83 @@ def trace(model, dev, imgs, masks, out: Path):
                     chunk=CHUNKS[0], tiles=len(imgs))
 
 
+def mma_alternative_ms(args, xs, packed, tile: int, splits: int) -> float:
+    """K2's MMA kernel on a given tile and split count, past plan_stage,
+    timed as the wrapper is; its output held to the wrapper's."""
+    x, m, weight, bias, stride, padding, a, bb = args
+    b, h, w, ca = x.shape
+    cb = 0 if xs is None else xs.shape[-1]
+    cout, k = weight.shape[0], weight.shape[-1]
+    oh, ow = (h + 2 * padding - k) // stride + 1, (w + 2 * padding - k) // stride + 1
+    out = torch.empty((b, oh, ow, cout), device=x.device)
+    new_mask = torch.empty((b, oh, ow, 1), device=x.device)
+    ws = torch.empty((splits, b * oh * ow, cout), device=x.device) if splits > 1 else None
+    ratio_ws = torch.empty(b * oh * ow, device=x.device) if splits > 1 else None
+    lib = load_library()
+
+    def run():
+        check(lib.tg_pconv_eval_mma_f32(
+            x.data_ptr(), None if xs is None else xs.data_ptr(), m.data_ptr(),
+            packed[0].data_ptr(), packed[1].data_ptr(), bias.data_ptr(), a.data_ptr(),
+            bb.data_ptr(), out.data_ptr(), new_mask.data_ptr(),
+            None if ws is None else ws.data_ptr(), None if ratio_ws is None else ratio_ws.data_ptr(),
+            b, h, w, ca, cb, cout, k, stride, padding, tile, splits,
+            torch.cuda.current_stream().cuda_stream), "mma_alternative_ms")
+
+    run()
+    want, _ = fused_pconv_eval(*args, x_skip=xs, packed=packed)
+    torch.cuda.synchronize()
+    err = (out - want).abs().max().item()
+    if not err <= 1e-4 * want.abs().max().item():
+        raise RuntimeError(f"K2 on tile {tile}, {splits} splits: {err} from the wrapper's output")
+    return time_ms(run)
+
+
 def stage_rates(model, dev):
-    gen = torch.Generator().manual_seed(SEED + 1)
     rows = []
-    for name, h, ca, cb, st in stage_geometries(model, SIZE):
-        x = torch.rand((STAGE_BATCH, h, h, ca), generator=gen).to(dev)
-        xs = torch.rand((STAGE_BATCH, h, h, cb), generator=gen).to(dev) if cb else None
-        m = holey_mask(STAGE_BATCH, h, h, gen, dev)
-        weight, bias = st.input_conv.weight.detach(), st.input_conv.bias.detach()
-        a, bb = fold_batch_norm(st.bn.weight.detach(), st.bn.bias.detach(),
-                                st.bn.running_mean, st.bn.running_var, st.bn.eps)
-        args = (x, m, weight, bias, st.stride, st.padding, a, bb)
-        out, new_mask = fused_pconv_eval(*args, x_skip=xs)
-        ms = time_ms(lambda: fused_pconv_eval(*args, x_skip=xs))
-        plain = time_ms(lambda: fused_pconv_eval_plain(*args, x_skip=xs))
-        relayout = time_ms(lambda: weight.permute(2, 3, 1, 0).contiguous())
-        flop = 2.0 * out.numel() * weight[0].numel()
-        row = dict(stage=name, ms=ms, plain_ms=plain, relayout_ms=relayout, gflop=flop / 1e9,
-                   tflops=flop / ms / 1e9, plain_tflops=flop / plain / 1e9,
-                   **bound(flop, nbytes(x, xs, m, weight, bias, a, bb, out, new_mask)))
-        line("stage", **{k: f"{v:.4f}" if isinstance(v, float) else v for k, v in row.items()})
-        rows.append(row)
-    return rows + [total("stage", "stage", rows)]
+    for batch in STAGE_BATCHES:
+        gen = torch.Generator().manual_seed(SEED + 1)
+        batch_rows = []
+        for name, h, ca, cb, st in stage_geometries(model, SIZE):
+            args, xs, packed = stage_inputs(st, h, ca, cb, batch, gen, dev)
+            weight = args[2]
+            r = k2_stage(args, xs, packed)
+            pack = time_ms(lambda: pack_pconv_weight(weight))
+            alt = {}
+            if r["variant"] == "mma":
+                b, oh, ow, cout = map(int, r["out"].split("x"))
+                plan = plan_stage(b * oh * ow, cout, ca, cb, weight.shape[-1], sm_count(dev))
+                # the plan itself through the same direct call, to compare like with like
+                alt["direct_ms"] = mma_alternative_ms(args, xs, packed, plan.tile, plan.splits)
+                other = 1 - plan.tile
+                if other == 0 or weight.shape[-1] <= 5:  # the 256x64 tile holds k <= 5
+                    alt[f"tile_{'x'.join(map(str, MMA_TILES[other]))}_ms"] = mma_alternative_ms(
+                        args, xs, packed, other, plan.splits)
+                if plan.splits > 1:
+                    alt["unsplit_ms"] = mma_alternative_ms(args, xs, packed, plan.tile, 1)
+            row = dict(batch=batch, stage=name, variant=r["variant"], tile=r["tile"],
+                       splits=r["splits"], ms=r["ms"], plain_ms=r["plain_ms"],
+                       library_ms=r["library_ms"], host_ms=r["host_ms"], pack_ms=pack,
+                       gflop=r["flop"] / 1e9,
+                       tflops=r["tflops"], plain_tflops=r["flop"] / r["plain_ms"] / 1e9,
+                       library_tflops=r["flop"] / r["library_ms"] / 1e9,
+                       bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+                       vs_bound=r["ms"] / r["bound_ms"],
+                       rel_err=r["max_abs_err"] / max(r["scale"], 1e-30), bitwise=r["bitwise"],
+                       **alt)
+            line("stage", **{k: f"{v:.4f}" if isinstance(v, float) else v for k, v in row.items()})
+            batch_rows.append(row)
+            del args, xs
+        rows += batch_rows + [total("stage", "stage", batch_rows, batch=batch,
+                                    library_ms=sum(r["library_ms"] for r in batch_rows),
+                                    **sum_bounds(batch_rows))]
+    return rows
 
 
-def total(phase: str, key: str, rows):
+def total(phase: str, key: str, rows, **extra):
     """The rows summed: kernel and plain ms, and the bound of the whole."""
-    row = {key: "total", **{k: sum(r[k] for r in rows) for k in ("ms", "plain_ms", "bound_ms")}}
+    row = {key: "total", **{k: sum(r[k] for r in rows) for k in ("ms", "plain_ms", "bound_ms")},
+           **extra}
     line(phase, **{k: f"{v:.4f}" if isinstance(v, float) else v for k, v in row.items()})
     return row
 
@@ -340,11 +403,11 @@ def k1_bwd_rates(dev):
     gen = torch.Generator().manual_seed(SEED + 4)
     rows = []
     for h, c in upsample_shapes(WIDTH):
-        g = torch.randn((STAGE_BATCH, 2 * h, 2 * h, c), generator=gen).to(dev)
+        g = torch.randn((K1_BWD_BATCH, 2 * h, 2 * h, c), generator=gen).to(dev)
         ms = time_ms(lambda: upsample2x_bwd(g))
         plain = time_ms(lambda: upsample2x_bwd_plain(g))
         moved = 4 * (g.numel() + g.numel() // 4)  # read g, write dx
-        row = dict(g=f"{STAGE_BATCH}x{2 * h}x{2 * h}x{c}", ms=ms, plain_ms=plain,
+        row = dict(g=f"{K1_BWD_BATCH}x{2 * h}x{2 * h}x{c}", ms=ms, plain_ms=plain,
                    mbytes=moved / 1e6, gbps=moved / ms / 1e6, plain_gbps=moved / plain / 1e6,
                    **bound(40.0 * g.numel() / 4, moved))
         line("k1_bwd", **{k: f"{v:.4f}" if isinstance(v, float) else v for k, v in row.items()})
@@ -355,29 +418,38 @@ def k1_bwd_rates(dev):
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", type=Path, default=Path("chiprun_out/profile_slice.json"))
+    ap.add_argument("--legs", default=",".join(LEGS),
+                    help=f"comma-separated legs to run, of {','.join(LEGS)}")
     args = ap.parse_args()
+    legs = set(args.legs.split(","))
+    if not legs <= set(LEGS):
+        ap.error(f"--legs: unknown {sorted(legs - set(LEGS))}")
     kind, smi = phase_env()
     phase_build()
     dev = torch.device("cuda", 0)
     imgs, masks = dsm_tiles(E2E_TILES, SIZE, SEED)
     args.out.parent.mkdir(parents=True, exist_ok=True)
-    result = dict(device=kind, nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda)
+    result = dict(device=kind, nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda,
+                  legs=sorted(legs))
     model = init_generator(WIDTH, torch.Generator().manual_seed(SEED), dev)
-    result.update(
-        forward=forward_rates(model, dev, imgs, masks),
-        e2e=e2e_rates(model, dev, imgs, masks),
-        trace=trace(model, dev, imgs, masks, args.out),
-        stages=stage_rates(model, dev),
-        tail=tail_rates(model, dev, imgs, masks),
-    )
+    if "inference" in legs:
+        result.update(forward=forward_rates(model, dev, imgs, masks),
+                      e2e=e2e_rates(model, dev, imgs, masks),
+                      trace=trace(model, dev, imgs, masks, args.out))
+    if "stage" in legs:
+        result["stages"] = stage_rates(model, dev)
+    if "tail" in legs:
+        result["tail"] = tail_rates(model, dev, imgs, masks)
     del model
     torch.cuda.empty_cache()
-    result["serve"], result["serve_trace"] = serve_rates(dev, imgs, masks, args.out)
-    result.update(
-        train=train_rates(dev, imgs, masks),
-        train_trace=train_trace(dev, imgs, masks, args.out),
-        k1_bwd=k1_bwd_rates(dev),
-    )
+    if "serve" in legs:
+        result["serve"], result["serve_trace"] = serve_rates(dev, imgs, masks, args.out)
+    if "train" in legs:
+        result.update(
+            train=train_rates(dev, imgs, masks),
+            train_trace=train_trace(dev, imgs, masks, args.out),
+            k1_bwd=k1_bwd_rates(dev),
+        )
     args.out.write_text(json.dumps(result, indent=1))
     print(json.dumps({"written": str(args.out)}), flush=True)
 

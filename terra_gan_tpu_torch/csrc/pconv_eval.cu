@@ -1,9 +1,9 @@
 // Fused eval-mode partial-convolution stage (K2), fp32, NHWC.
 //
 // Replaces the TPU kernel terra_gan_tpu/ops/pallas/pconv_kernel.py ::
-// fused_pconv_eval (bodies _kernel_s1, _kernel_s2, _epilogue, and the
-// tall-stage strip form _strided_strips_s1 / _call_kernel_s1). One launch
-// computes a whole PConv2d stage of the U-Net in eval mode:
+// fused_pconv_eval (:297; bodies _kernel_s1 :98, _kernel_s2 :123,
+// _epilogue :146, and the tall-stage strip form _call_kernel_s1 :232).
+// One call computes a whole PConv2d stage of the U-Net in eval mode:
 //
 //   xm       = concat(x_a, x_b) * m            (implicit concat, no copy)
 //   s        = boxsum_k(m)                     (the frozen ones-conv)
@@ -11,29 +11,84 @@
 //   out      = ReLU(((conv(xm, w) + bias) * ratio) * a + bb)
 //   new_mask = [s > 0]
 //
-// where a = gamma / sqrt(var + eps), bb = beta - mean * a fold the
-// eval BatchNorm. The bias sits inside the renormalisation, as in the
+// where a = gamma / sqrt(var + eps), bb = beta - mean * a fold the eval
+// BatchNorm. The bias sits inside the renormalisation, as in the
 // reference layer; the division is IEEE (no fast math) and the > 0 gate
 // is exact, so 0/1 masks give exactly the reference's new_mask.
 //
-// Bound on the H100: fp32 FMA throughput at the wide stages (the conv is
-// ~94 GFLOP per 512^2 tile), device-memory bytes at the deep 4^2..16^2
-// stages, where the weights dominate. Design: one block per (batch
-// element, 8x8 output tile, 64 output channels), 256 threads. The block
-// stages the mask patch and, chunk by chunk over 8 input channels, the
-// masked input patch with its halo ((8-1)*stride + k rows and columns)
-// in shared memory; zero padding is applied while staging. Each thread
-// accumulates 4 pixels x 4 output channels in fp32 registers, reading
-// the HWIO weights as float4 through the read-only cache. The mask
-// box-sum comes from the staged mask patch; the blocks of output-channel
-// tile 0 write new_mask. None of the TPU layout workarounds (phase
-// splits, halo strips, the _MAX_OW and _BLOCK_BUDGET envelopes) carry
-// over: every stage of the model, enc1 (one input channel, k7 s2) and
-// the 1x1-output stages of small tiles included, runs here.
+// The MMA variant: an implicit GEMM on the tensor cores in 3xTF32.
+//   M = B*OH*OW output pixels (the batch folded into M), N = Cout,
+//   K = k*k*(Ca+Cb) ordered (ky, kx, c): a K-chunk is kBK = 32 contiguous
+//   NHWC channels of one tap, read from x_a for c < Ca and from x_b for
+//   c >= Ca in place; a channel count that is not a multiple of 32 is
+//   zero-filled by the copy (the wrapper requires Ca, Cb % 4 == 0).
+//   Each fp32 operand is split into a TF32 hi and a TF32 residual lo,
+//   and every product is lo*hi + hi*lo, then hi*hi, into one fp32
+//   accumulator: the per-product error is about 2^-22 (TF32 alone:
+//   2^-11), which the eval forward's 1e-6 NRMSE gate on dec2's features
+//   needs (plain TF32 reads 1.45e-5 there). The weights arrive packed
+//   once by the wrapper (pack_pconv_weight: two planes, hi and lo, OHWI,
+//   K-major); x*m is formed and split in registers, as A goes from
+//   shared memory into the MMA fragments, so it never reaches device
+//   memory and the mask keeps its float semantics (0 * NaN is NaN).
+//
+// Bound on the H100 (SXM, 700 W): 3 TF32 products per fp32 product over
+// 495 TFLOP/s of dense TF32, or the bytes over 3.35 TB/s, whichever is
+// larger. At batch 2 the 14 stages are 186.6 GFLOP: 1.13 ms of
+// operations; the deep stages at batch 1 are bound by their weight bytes.
+//
+// Design and why (times: profile_slice.py's stage leg on the H100, 700 W,
+// which also runs each MMA stage on the other tile and unsplit; PERF.md):
+// - mma.sync.m16n8k8 TF32 (HMMA in the SASS), not wgmma: A must be
+//   masked and split between shared memory and the MMA, which a register
+//   A operand of mma.sync takes as it is; wgmma's register-A form needs
+//   the warpgroup fragment layout and 64-row tiles that enc7 and dec7
+//   (16-64 pixels at batch 1) cannot fill. mma.sync reaches a part of
+//   the dense TF32 rate; it is the first step, wgmma the next.
+// - Tiles: 256 threads, 8 warps of 64 x 32 outputs each: 128 x 128 for
+//   Cout > 64, 256 x 64 for Cout <= 64 and k <= 5 (at k = 7 that tile's
+//   mask taps would not fit). At Cout = 64 (dec2, dec1) 256 x 64 is
+//   1.8-1.9x faster than 128 x 128, half of whose columns would be empty;
+//   elsewhere 128 x 128 is 2-5 % faster, 1.4x at enc7. Fragments
+//   are read with 8-byte loads in a K order permuted within each 8-step,
+//   identically for A and B; rows padded to 40 floats keep these loads
+//   and the 16-byte copies free of bank conflicts.
+// - Accumulation: each chunk's 3 x 4 MMAs sum from zero, two m-tiles at a
+//   time, and are then added to the running sum in IEEE fp32. The MMA's
+//   own accumulation truncates; into one running sum over K it read
+//   7.9e-7 NRMSE on dec2's features, against the 1e-6 gate.
+// - A three-stage ring of cp.async copies (16 bytes a thread, zero-fill
+//   for padding, ragged channels and out-of-range rows and channels):
+//   chunk i+2 is in flight while chunk i is multiplied; one barrier a
+//   chunk of 32 channels. Three is the most that fits: 190-215 KB of
+//   shared memory, one block an SM (four stages would need 250-270 KB).
+// - The mask of every tap of the tile's pixels is staged once a tile
+//   (while the first copies fly); the box-sum, the ratio and new_mask
+//   come from it. new_mask is written once a pixel (by N-tile 0).
+// - Split-K where the M x N tiles fill the 132 SMs' waves badly (the
+//   deep stages; the wrapper's plan_stage picks the count): split z
+//   takes the chunks [z*C/S, (z+1)*C/S), writes an fp32 partial tile to
+//   a workspace, and pconv_splitk_reduce_kernel sums the splits in
+//   order, with no atomics, and applies the epilogue: bitwise the same
+//   result from call to call. Every split stage is faster split: at
+//   batch 8 enc7 (30 splits) 9x, dec7 (8) 6x, enc5 (2) 1.8x; at batch 1
+//   dec7 (30) 13x.
+//
+// The SIMT variant (pconv_simt_kernel): a channel count that is not a
+// multiple of 4 (enc1 has one input channel, K = 49) cannot be copied
+// 16 bytes at a time, and 32-channel chunks of one real channel would
+// waste the MMA; the wrapper picks this variant by shape. One block per
+// (batch element, 8x8 output tile, 64 output channels); the masked
+// input patch is staged 8 channels at a time and each thread
+// accumulates 4 pixels x 4 output channels in fp32 FMA, reading HWIO
+// weights as float4.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
+
+// ---------------------------------------------------------------- SIMT
 
 constexpr int kTH = 8;         // output tile rows
 constexpr int kTW = 8;         // output tile columns
@@ -47,7 +102,7 @@ constexpr int kMaxPW = (kTW - 1) * kMaxStride + kMaxK;
 constexpr int kMaxPatch = kMaxPH * kMaxPW;
 
 __global__ void __launch_bounds__(kThreads)
-pconv_eval_kernel(const float* __restrict__ xa, const float* __restrict__ xb,
+pconv_simt_kernel(const float* __restrict__ xa, const float* __restrict__ xb,
                   const float* __restrict__ mask, const float* __restrict__ w,
                   const float* __restrict__ bias, const float* __restrict__ bn_a,
                   const float* __restrict__ bn_b, float* __restrict__ out,
@@ -182,10 +237,389 @@ pconv_eval_kernel(const float* __restrict__ xa, const float* __restrict__ xb,
   }
 }
 
+// ----------------------------------------------------------------- MMA
+
+constexpr int kBK = 32;           // K-chunk: 32 channels of one tap
+constexpr int kLds = kBK + 8;     // shared-memory row stride, in floats
+constexpr int kStages = 3;        // cp.async ring depth
+constexpr int kMmaThreads = 256;  // 8 warps, a 64 x 32 output tile each
+
+struct MmaArgs {
+  const float* xa;
+  const float* xb;
+  const float* mask;
+  const float* w_hi;      // [Cout][k][k][Ca+Cb], TF32 hi
+  const float* w_lo;      // the same, TF32 residual
+  const float* bias;
+  const float* bn_a;
+  const float* bn_b;
+  float* out;
+  float* new_mask;
+  float* ws;              // [splits][M][Cout] partial sums, splits > 1
+  float* ratio_ws;        // [M] renormalisation ratios, splits > 1
+  int H, W, Ca, Cb, Cout, k, stride, pad, OH, OW, M;
+  int nca, ncb;           // K-chunks a tap of x_a and of x_b
+  int chunks;             // k*k*(nca+ncb)
+  int splits;
+};
+
+__host__ __device__ constexpr int mma_smem_floats(int bm, int bn, int kk) {
+  return kStages * bm * kLds + kStages * 2 * bn * kLds  // the A and B rings
+         + 4 * bm                                        // row table (int4)
+         + bm                                            // ratios
+         + bm * kk;                                      // mask taps
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, asynchronously; zero-filled when !pred
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool pred) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(pred ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// round to TF32, to nearest with ties away from zero (pack_pconv_weight's rounding)
+__device__ __forceinline__ uint32_t tf32_rna(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
+  return r;
+}
+
+// d += a * b on the tensor cores: A 16x8 (row), B 8x8 (col), TF32 in, fp32 sum
+__device__ __forceinline__ void mma_tf32(float* d, const uint32_t* a, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ float relu_keep_nan(float v) { return v < 0.f ? 0.f : v; }
+
+template <int WM, int WN>
+__global__ void __launch_bounds__(kMmaThreads, 1) pconv_mma_kernel(const MmaArgs p) {
+  constexpr int BM = WM * 64;
+  constexpr int BN = WN * 32;
+  constexpr int kSegA = BM * (kBK / 4) / kMmaThreads;      // 16-byte copies a thread
+  constexpr int kSegB = 2 * BN * (kBK / 4) / kMmaThreads;  // both planes
+  extern __shared__ __align__(16) float smem[];
+  float* sA = smem;                                 // [kStages][BM][kLds]
+  float* sB = sA + kStages * BM * kLds;             // [kStages][2][BN][kLds]
+  int4* rowtab = reinterpret_cast<int4*>(sB + kStages * 2 * BN * kLds);  // [BM]
+  float* s_ratio = reinterpret_cast<float*>(rowtab + BM);                // [BM]
+  float* mtap = s_ratio + BM;                                            // [BM][k*k]
+
+  const int tid = threadIdx.x;
+  const int m0 = blockIdx.x * BM;
+  const int n0 = blockIdx.y * BN;
+  const int z = blockIdx.z;
+  const int kk = p.k * p.k;
+  const int cin = p.Ca + p.Cb;
+  const int Kw = kk * cin;
+  const int OHW = p.OH * p.OW;
+  const int per_tap = p.nca + p.ncb;
+
+  // Each row of the tile: (its image's first pixel, top-left input row
+  // and column of its window). A row past M gets a window far outside
+  // the image, so every tap reads as padding.
+  for (int r = tid; r < BM; r += kMmaThreads) {
+    const int pix = m0 + r;
+    int4 e = make_int4(0, -(1 << 28), -(1 << 28), 0);
+    if (pix < p.M) {
+      const int b = pix / OHW;
+      const int rem = pix - b * OHW;
+      const int oy = rem / p.OW;
+      const int ox = rem - oy * p.OW;
+      e = make_int4(b * p.H * p.W, oy * p.stride - p.pad, ox * p.stride - p.pad, 0);
+    }
+    rowtab[r] = e;
+  }
+  __syncthreads();
+
+  const int c_begin = (int)((long long)z * p.chunks / p.splits);
+  const int c_end = (int)((long long)(z + 1) * p.chunks / p.splits);
+  const int nchunk = c_end - c_begin;
+
+  // Chunk c (tap-major, then x_a's chunks, then x_b's) into ring slot `slot`.
+  auto load_chunk = [&](int c, int slot) {
+    const int tap = c / per_tap;
+    const int sub = c - tap * per_tap;
+    const int ky = tap / p.k;
+    const int kx = tap - ky * p.k;
+    const bool part_a = sub < p.nca;
+    const int c0 = (part_a ? sub : sub - p.nca) * kBK;
+    const int C = part_a ? p.Ca : p.Cb;
+    const float* src = part_a ? p.xa : p.xb;
+    const int koff = tap * cin + (part_a ? 0 : p.Ca) + c0;
+    float* a_dst = sA + slot * BM * kLds;
+#pragma unroll
+    for (int i = 0; i < kSegA; ++i) {
+      const int seg = tid + i * kMmaThreads;
+      const int r = seg >> 3;
+      const int q = seg & 7;
+      const int4 e = rowtab[r];
+      const int iy = e.y + ky;
+      const int ix = e.z + kx;
+      const int ch = c0 + 4 * q;
+      const bool ok = (unsigned)iy < (unsigned)p.H && (unsigned)ix < (unsigned)p.W && ch < C;
+      const float* g = ok ? src + ((size_t)(e.x + iy * p.W + ix) * C + ch) : p.xa;
+      cp_async16(a_dst + r * kLds + 4 * q, g, ok);
+    }
+    float* b_dst = sB + slot * 2 * BN * kLds;
+#pragma unroll
+    for (int i = 0; i < kSegB; ++i) {
+      const int seg = tid + i * kMmaThreads;
+      const int plane = seg / (BN * 8);
+      const int rr = seg - plane * BN * 8;
+      const int r = rr >> 3;
+      const int q = rr & 7;
+      const int n = n0 + r;
+      const bool ok = n < p.Cout && c0 + 4 * q < C;
+      const float* w = plane ? p.w_lo : p.w_hi;
+      const float* g = ok ? w + ((size_t)n * Kw + koff + 4 * q) : w;
+      cp_async16(b_dst + (plane * BN + r) * kLds + 4 * q, g, ok);
+    }
+  };
+
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < nchunk) load_chunk(c_begin + s, s);
+    cp_async_commit();
+  }
+
+  // While the first chunks fly: the mask at every tap of every row, zero
+  // outside the image (the ones-conv's padding), and from it the ratio.
+  for (int i = tid; i < BM * kk; i += kMmaThreads) {
+    const int r = i / kk;
+    const int tp = i - r * kk;
+    const int ky = tp / p.k;
+    const int kx = tp - ky * p.k;
+    const int4 e = rowtab[r];
+    const int iy = e.y + ky;
+    const int ix = e.z + kx;
+    float v = 0.f;
+    if ((unsigned)iy < (unsigned)p.H && (unsigned)ix < (unsigned)p.W) {
+      v = p.mask[e.x + iy * p.W + ix];
+    }
+    mtap[i] = v;
+  }
+  __syncthreads();
+  if (tid < BM) {
+    float s = 0.f;
+    for (int tp = 0; tp < kk; ++tp) s += mtap[tid * kk + tp];
+    const bool valid = s > 0.f;
+    const float ratio = valid ? (float)kk / (s + 1e-8f) : 0.f;
+    s_ratio[tid] = ratio;
+    const int pix = m0 + tid;
+    if (blockIdx.y == 0 && z == 0 && pix < p.M) {
+      p.new_mask[pix] = valid ? 1.f : 0.f;
+      if (p.splits > 1) p.ratio_ws[pix] = ratio;
+    }
+  }
+
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int wm = warp / WN;
+  const int wn = warp % WN;
+  const int g = lane >> 2;  // the fragment's row (A, C) or column (B)
+  const int t = lane & 3;   // the fragment's K index (A, B) or column pair (C)
+  const int arow = wm * 64 + g;
+  const int brow = wn * 32 + g;
+
+  float acc[4][4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+  for (int c = 0; c < nchunk; ++c) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();  // chunk c landed for all; slot (c-1) % kStages is free
+    if (c + kStages - 1 < nchunk) load_chunk(c_begin + c + kStages - 1, (c + kStages - 1) % kStages);
+    cp_async_commit();
+
+    const int slot = c % kStages;
+    const float* a_s = sA + slot * BM * kLds;
+    const float* bh_s = sB + slot * 2 * BN * kLds;
+    const float* bl_s = bh_s + BN * kLds;
+    const int tap = (c_begin + c) / per_tap;
+    float mv[4][2];  // the mask at this tap for the thread's 8 rows
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      mv[i][0] = mtap[(arow + i * 16) * kk + tap];
+      mv[i][1] = mtap[(arow + i * 16 + 8) * kk + tap];
+    }
+
+    // K order within the chunk: at step ks the quad's 8 K indices are the
+    // channels 8ks .. 8ks+7, thread t's logical index t the channel
+    // 8ks + 2t and index t + 4 the next, read as one 8-byte load.
+    // Two m-tiles at a time, the chunk's products are summed on the tensor
+    // cores from zero and then added to acc in IEEE fp32: the MMA's own
+    // accumulation truncates, and into a running sum of the whole K its
+    // error grows with K (on the H100, dec2's features read 7.9e-7 NRMSE
+    // that way in chip_smoke.py, against a 1e-6 gate).
+#pragma unroll
+    for (int ip = 0; ip < 2; ++ip) {
+      float part[2][4][4];
+#pragma unroll
+      for (int ii = 0; ii < 2; ++ii)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) part[ii][j][e] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < kBK / 8; ++ks) {
+        const int col = 8 * ks + 2 * t;
+        uint32_t bhi[4][2], blo[4][2];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float2 vh = *reinterpret_cast<const float2*>(bh_s + (brow + j * 8) * kLds + col);
+          const float2 vl = *reinterpret_cast<const float2*>(bl_s + (brow + j * 8) * kLds + col);
+          bhi[j][0] = __float_as_uint(vh.x);
+          bhi[j][1] = __float_as_uint(vh.y);
+          blo[j][0] = __float_as_uint(vl.x);
+          blo[j][1] = __float_as_uint(vl.y);
+        }
+        uint32_t ahi[2][4], alo[2][4];
+#pragma unroll
+        for (int ii = 0; ii < 2; ++ii) {
+          const int i = 2 * ip + ii;
+          const float2 u0 = *reinterpret_cast<const float2*>(a_s + (arow + i * 16) * kLds + col);
+          const float2 u1 = *reinterpret_cast<const float2*>(a_s + (arow + i * 16 + 8) * kLds + col);
+          // x * m, as the fragment wants it: (g, t), (g+8, t), (g, t+4), (g+8, t+4)
+          const float v[4] = {u0.x * mv[i][0], u1.x * mv[i][1], u0.y * mv[i][0], u1.y * mv[i][1]};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            ahi[ii][e] = tf32_rna(v[e]);
+            alo[ii][e] = tf32_rna(v[e] - __uint_as_float(ahi[ii][e]));
+          }
+        }
+        // the small products first, hi*hi last, into the same sum
+#pragma unroll
+        for (int ii = 0; ii < 2; ++ii)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) mma_tf32(part[ii][j], alo[ii], bhi[j][0], bhi[j][1]);
+#pragma unroll
+        for (int ii = 0; ii < 2; ++ii)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) mma_tf32(part[ii][j], ahi[ii], blo[j][0], blo[j][1]);
+#pragma unroll
+        for (int ii = 0; ii < 2; ++ii)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) mma_tf32(part[ii][j], ahi[ii], bhi[j][0], bhi[j][1]);
+      }
+#pragma unroll
+      for (int ii = 0; ii < 2; ++ii)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[2 * ip + ii][j][e] += part[ii][j][e];
+    }
+  }
+  cp_async_wait<0>();
+
+  // Epilogue: the fragment's rows g, g+8 and columns 2t, 2t+1.
+  const bool split = p.splits > 1;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int r = arow + i * 16 + hr * 8;
+      const int pix = m0 + r;
+      if (pix >= p.M) continue;
+      const float ratio = s_ratio[r];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int n = n0 + wn * 32 + j * 8 + 2 * t;
+        if (n >= p.Cout) continue;  // Cout % 4 == 0: n and n + 1 both in range
+        const float v0 = acc[i][j][2 * hr];
+        const float v1 = acc[i][j][2 * hr + 1];
+        if (split) {
+          *reinterpret_cast<float2*>(p.ws + ((size_t)z * p.M + pix) * p.Cout + n) =
+              make_float2(v0, v1);
+        } else {
+          float2 o;
+          o.x = relu_keep_nan(((v0 + p.bias[n]) * ratio) * p.bn_a[n] + p.bn_b[n]);
+          o.y = relu_keep_nan(((v1 + p.bias[n + 1]) * ratio) * p.bn_a[n + 1] + p.bn_b[n + 1]);
+          *reinterpret_cast<float2*>(p.out + (size_t)pix * p.Cout + n) = o;
+        }
+      }
+    }
+  }
+}
+
+// The splits' partial sums added in split order (no atomics), then the
+// epilogue; a block per pixel (grid-stride), a thread per 4 channels.
+__global__ void __launch_bounds__(128)
+pconv_splitk_reduce_kernel(const float* __restrict__ ws, const float* __restrict__ ratio_ws,
+                           const float* __restrict__ bias, const float* __restrict__ bn_a,
+                           const float* __restrict__ bn_b, float* __restrict__ out, int M,
+                           int Cout, int splits) {
+  const size_t plane = (size_t)M * Cout;
+  for (int pix = blockIdx.x; pix < M; pix += gridDim.x) {
+    const float r = ratio_ws[pix];
+    for (int n = 4 * threadIdx.x; n < Cout; n += 4 * blockDim.x) {
+      const size_t i = (size_t)pix * Cout + n;
+      float4 s = *reinterpret_cast<const float4*>(ws + i);
+      for (int zz = 1; zz < splits; ++zz) {
+        const float4 v = *reinterpret_cast<const float4*>(ws + zz * plane + i);
+        s.x += v.x;
+        s.y += v.y;
+        s.z += v.z;
+        s.w += v.w;
+      }
+      const float4 bv = *reinterpret_cast<const float4*>(bias + n);
+      const float4 av = *reinterpret_cast<const float4*>(bn_a + n);
+      const float4 cv = *reinterpret_cast<const float4*>(bn_b + n);
+      float4 o;
+      o.x = relu_keep_nan(((s.x + bv.x) * r) * av.x + cv.x);
+      o.y = relu_keep_nan(((s.y + bv.y) * r) * av.y + cv.y);
+      o.z = relu_keep_nan(((s.z + bv.z) * r) * av.z + cv.z);
+      o.w = relu_keep_nan(((s.w + bv.w) * r) * av.w + cv.w);
+      *reinterpret_cast<float4*>(out + i) = o;
+    }
+  }
+}
+
+template <int WM, int WN>
+int launch_mma(const MmaArgs& a, cudaStream_t stream) {
+  constexpr int BM = WM * 64;
+  constexpr int BN = WN * 32;
+  const size_t smem = sizeof(float) * mma_smem_floats(BM, BN, a.k * a.k);
+  // above 48 KB only after this; per call, since it is set per device
+  cudaError_t err = cudaFuncSetAttribute(pconv_mma_kernel<WM, WN>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((a.M + BM - 1) / BM, (a.Cout + BN - 1) / BN, a.splits);
+  pconv_mma_kernel<WM, WN><<<grid, kMmaThreads, smem, stream>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || a.splits == 1) return (int)err;
+  const int blocks = a.M < 132 * 16 ? a.M : 132 * 16;
+  pconv_splitk_reduce_kernel<<<blocks, 128, 0, stream>>>(a.ws, a.ratio_ws, a.bias, a.bn_a,
+                                                         a.bn_b, a.out, a.M, a.Cout, a.splits);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// Plain C entry point for ctypes. x_b may be null when Cb == 0.
-// Returns the cudaError_t of the launch (0 on success).
+// Plain C entry points for ctypes. x_b may be null when Cb == 0.
+// Each returns the cudaError_t of its launches (0 on success).
+
+// SIMT variant; w is HWIO ([k][k][Ca+Cb][Cout]).
 extern "C" int tg_pconv_eval_f32(const float* xa, const float* xb,
                                  const float* mask, const float* w,
                                  const float* bias, const float* bn_a,
@@ -203,8 +637,67 @@ extern "C" int tg_pconv_eval_f32(const float* xa, const float* xb,
   const int tiles_y = (OH + kTH - 1) / kTH;
   const int tiles_x = (OW + kTW - 1) / kTW;
   const dim3 grid(tiles_y * tiles_x, (Cout + kBN - 1) / kBN, B);
-  pconv_eval_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+  pconv_simt_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
       xa, xb, mask, w, bias, bn_a, bn_b, out, new_mask, H, W, Ca, Cb, Cout, k,
       stride, pad, OH, OW, tiles_x);
   return (int)cudaGetLastError();
+}
+
+// Dynamic shared memory of one MMA block: tile 0 is 128 x 128, tile 1 256 x 64.
+extern "C" int tg_pconv_mma_smem_bytes(int tile, int k) {
+  return (int)sizeof(float) *
+         (tile == 0 ? mma_smem_floats(128, 128, k * k) : mma_smem_floats(256, 64, k * k));
+}
+
+// MMA variant (3xTF32); w_hi, w_lo are pack_pconv_weight's planes
+// ([Cout][k][k][Ca+Cb]). With splits > 1, ws holds splits * M * Cout
+// floats and ratio_ws M; the second launch sums the splits.
+extern "C" int tg_pconv_eval_mma_f32(const float* xa, const float* xb, const float* mask,
+                                     const float* w_hi, const float* w_lo, const float* bias,
+                                     const float* bn_a, const float* bn_b, float* out,
+                                     float* new_mask, float* ws, float* ratio_ws, int B, int H,
+                                     int W, int Ca, int Cb, int Cout, int k, int stride,
+                                     int pad, int tile, int splits, void* stream) {
+  if (k < 1 || k > kMaxK || stride < 1 || stride > kMaxStride || pad < 0 || Ca < 4 ||
+      Ca % 4 != 0 || Cb < 0 || Cb % 4 != 0 || Cout < 4 || Cout % 4 != 0 || B < 1 ||
+      (tile != 0 && tile != 1) || splits < 1 || (Cb > 0 && xb == nullptr)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int OH = (H + 2 * pad - k) / stride + 1;
+  const int OW = (W + 2 * pad - k) / stride + 1;
+  if (OH < 1 || OW < 1) return (int)cudaErrorInvalidValue;
+  MmaArgs a;
+  a.xa = xa;
+  a.xb = xb;
+  a.mask = mask;
+  a.w_hi = w_hi;
+  a.w_lo = w_lo;
+  a.bias = bias;
+  a.bn_a = bn_a;
+  a.bn_b = bn_b;
+  a.out = out;
+  a.new_mask = new_mask;
+  a.ws = ws;
+  a.ratio_ws = ratio_ws;
+  a.H = H;
+  a.W = W;
+  a.Ca = Ca;
+  a.Cb = Cb;
+  a.Cout = Cout;
+  a.k = k;
+  a.stride = stride;
+  a.pad = pad;
+  a.OH = OH;
+  a.OW = OW;
+  a.M = B * OH * OW;
+  a.nca = (Ca + kBK - 1) / kBK;
+  a.ncb = (Cb + kBK - 1) / kBK;
+  a.chunks = k * k * (a.nca + a.ncb);
+  a.splits = splits;
+  if (splits > a.chunks || (splits > 1 && (ws == nullptr || ratio_ws == nullptr)) ||
+      tg_pconv_mma_smem_bytes(tile, k) > 232448) {  // a block's shared memory on sm_90
+    return (int)cudaErrorInvalidValue;
+  }
+  return tile == 0 ? launch_mma<2, 4>(a, (cudaStream_t)stream)
+                   : launch_mma<4, 2>(a, (cudaStream_t)stream);
 }

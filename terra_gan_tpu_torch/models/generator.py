@@ -48,6 +48,7 @@ from ..ops.cuda.pconv_kernel import (
     fold_batch_norm,
     fused_pconv_eval,
     fused_pconv_eval_plain,
+    pack_pconv_weight,
 )
 from ..ops.cuda.tail_kernel import fused_decoder_tail, fused_decoder_tail_plain
 from ..ops.cuda.upsample_kernel import upsample2x_fwd_plain
@@ -78,6 +79,17 @@ class PConv2d(nn.Module):
         self.input_conv = nn.Conv2d(in_ch, out_ch, k, stride, padding, bias=True)
         self.mask_conv = _MaskConv(k)
         self.bn = nn.BatchNorm2d(out_ch)
+        self._packed_key, self._packed = None, None
+
+    def packed_weight(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """K2's TF32 planes of ``input_conv.weight`` (``pack_pconv_weight``),
+        packed again whenever the weight's storage or version changes:
+        ``load_state_dict``, an optimizer step, ``.to()``."""
+        w = self.input_conv.weight
+        key = (w.data_ptr(), w._version, w.device)
+        if key != self._packed_key:
+            self._packed, self._packed_key = pack_pconv_weight(w), key
+        return self._packed
 
     def forward(
         self,
@@ -88,8 +100,8 @@ class PConv2d(nn.Module):
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """(x, skip) are the two halves of an implicit channel concat.
 
-        ``stage`` is the eval-mode stage (K2 or its plain version); train
-        mode is plain torch whatever it is.
+        ``stage`` is the eval-mode stage (K2 or its plain version, both
+        taking ``packed``); train mode is plain torch whatever it is.
         """
         if self.training:
             parts = (x,) if skip is None else (x, skip)
@@ -103,9 +115,11 @@ class PConv2d(nn.Module):
         a, bb = fold_batch_norm(
             bn.weight, bn.bias, bn.running_mean, bn.running_var, bn.eps
         )
+        # on a card the kernel reads the cached TF32 planes, not the weight
+        packed = self.packed_weight() if self.input_conv.weight.is_cuda else None
         return stage(
             x, mask, self.input_conv.weight, self.input_conv.bias, self.stride,
-            self.padding, a, bb, x_skip=skip,
+            self.padding, a, bb, x_skip=skip, packed=packed,
         )
 
 

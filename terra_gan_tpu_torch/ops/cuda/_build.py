@@ -110,6 +110,10 @@ def _compile(nvcc: str, srcs, so: Path) -> str:
 def _bind(lib: ctypes.CDLL) -> None:
     lib.tg_pconv_eval_f32.restype = _I
     lib.tg_pconv_eval_f32.argtypes = [_P] * 9 + [_I] * 9 + [_P]
+    lib.tg_pconv_eval_mma_f32.restype = _I
+    lib.tg_pconv_eval_mma_f32.argtypes = [_P] * 12 + [_I] * 11 + [_P]
+    lib.tg_pconv_mma_smem_bytes.restype = _I
+    lib.tg_pconv_mma_smem_bytes.argtypes = [_I, _I]
     lib.tg_upsample2x_fwd.restype = _I
     lib.tg_upsample2x_fwd.argtypes = [_P, _P] + [_I] * 5 + [_P]
     lib.tg_upsample2x_bwd.restype = _I

@@ -9,30 +9,115 @@ form ``_strided_strips_s1``). One call computes
     new_mask = boxsum_k(m) > 0
 
 where ``a, bb`` are the eval BatchNorm folded per channel
-(``fold_batch_norm``). The kernel is ``csrc/pconv_eval.cu``: fp32, bound
-by FMA throughput at the wide stages and by weight bytes at the deep
-ones; the source note there gives the design. It takes every stage of
-the model: k up to 7, stride 1 or 2, any channel count (enc1 has one),
-outputs down to 1x1, and the decoder's (up, skip) pair as two inputs
-read in place. The plain version is ``ops.pconv.partial_conv2d_split``
-(F.conv2d on x*m, box-sum, renorm) followed by the folded BatchNorm and
-ReLU.
+(``fold_batch_norm``). The kernel is ``csrc/pconv_eval.cu``; the source
+note there gives the design. It has two variants, picked by shape in
+``plan_stage``, never as a fallback:
+
+- ``mma``: an implicit GEMM on the tensor cores in 3xTF32 (fp32
+  accuracy), for channel counts that are multiples of 4, with split-K
+  (``mma_split`` then ``split_reduce``) where the output tiles fill the
+  card's SMs badly. It reads the weights as ``pack_pconv_weight``'s two
+  TF32 planes; ``PConv2d`` caches them, a raw call packs them itself.
+- ``simt``: fp32 FMA, for the rest (enc1, one input channel).
+
+It takes every stage of the model: k up to 7, stride 1 or 2, outputs
+down to 1x1, and the decoder's (up, skip) pair as two inputs read in
+place. The plain version is ``ops.pconv.partial_conv2d_split`` (F.conv2d
+on x*m, box-sum, renorm) followed by the folded BatchNorm and ReLU.
 
 ``fused_pconv_eval`` takes the plain version only for tensors on the
 CPU; for CUDA tensors it launches the kernel or raises. The kernel has
 no backward, as in the JAX package, where a train-mode stage is the
 plain conv and BatchNorm: on a CUDA tensor under autograd it raises
-rather than return a result cut from the graph.
+rather than return a result cut from the graph. ``fused_pconv_eval.
+launches`` counts stages (calls), ``fused_pconv_eval.variants`` the CUDA
+launches of each variant.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import functools
+import math
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from ..pconv import partial_conv2d_split
 from ._build import check, load_library
+
+# the MMA kernel's K-chunk (channels of one tap) and its two tiles (BM, BN)
+CHUNK_CHANNELS = 32
+MMA_TILES = ((128, 128), (256, 64))
+# a split of the K-chunks takes at least this many: fewer would spend
+# more on the block's set-up (mask staging, the copy ring's fill) than on MMAs
+MIN_CHUNKS_PER_SPLIT = 4
+# split while the tiles' last wave is less full than this
+WAVE_FILL = 0.9
+VARIANTS = ("simt", "mma", "mma_split", "split_reduce")
+
+
+class StagePlan(NamedTuple):
+    """How one stage runs: the variant, the MMA tile (index into
+    MMA_TILES), the split count and the K-chunks the splits share."""
+
+    variant: str
+    tile: int
+    splits: int
+    chunks: int
+
+
+def wave_fill(blocks: int, sms: int) -> float:
+    """Share of the SM slots the grid's waves use, at one block an SM."""
+    return blocks / (sms * math.ceil(blocks / sms))
+
+
+@functools.lru_cache(maxsize=None)
+def plan_stage(m: int, n: int, ca: int, cb: int, k: int, sms: int) -> StagePlan:
+    """The variant, tile and split count of a stage with M = B*OH*OW
+    output pixels, N = Cout, Ca + Cb input channels and a k x k window,
+    on a card of ``sms`` SMs. A pure function of the shapes.
+
+    The split count is the least that fills the last wave of blocks to
+    WAVE_FILL, or else the one that fills it most, with at least
+    MIN_CHUNKS_PER_SPLIT chunks a split."""
+    if ca % 4 or cb % 4:
+        return StagePlan("simt", -1, 1, 0)
+    # the 256 x 64 tile's shared memory holds k*k mask taps a row up to k = 5
+    tile = 1 if n <= MMA_TILES[1][1] and k <= 5 else 0
+    bm, bn = MMA_TILES[tile]
+    chunks = k * k * (-(-ca // CHUNK_CHANNELS) + -(-cb // CHUNK_CHANNELS))
+    tiles = -(-m // bm) * -(-n // bn)
+    best = 1
+    for s in range(1, max(1, chunks // MIN_CHUNKS_PER_SPLIT) + 1):
+        if wave_fill(tiles * s, sms) > wave_fill(tiles * best, sms):
+            best = s
+        if wave_fill(tiles * best, sms) >= WAVE_FILL:
+            break
+    return StagePlan("mma", tile, best, chunks)
+
+
+def split_chunk_range(z: int, splits: int, chunks: int) -> Tuple[int, int]:
+    """The K-chunks [begin, end) of split z, as the kernel computes them."""
+    return z * chunks // splits, (z + 1) * chunks // splits
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """fp32 to TF32 (10 mantissa bits), to nearest with ties away from zero,
+    as ``cvt.rna.tf32.f32`` rounds, on the fp32 bits; NaN stays NaN."""
+    bits = x.contiguous().view(torch.int32)
+    r = ((bits + 0x1000) & -0x2000).view(torch.float32)
+    return torch.where(torch.isnan(x), x, r)
+
+
+def pack_pconv_weight(weight: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """nn.Conv2d's [Cout, Cin, k, k] fp32 weight as the MMA kernel's two
+    planes (w_hi, w_lo), each [Cout, k, k, Cin] (OHWI, K-major): w_hi is
+    w rounded to TF32, w_lo the residual w - w_hi rounded to TF32 (0
+    where w_hi is not finite), so w_hi + w_lo is w within 2^-22 of |w|."""
+    w = weight.detach().permute(0, 2, 3, 1).contiguous()
+    hi = tf32_round(w)
+    lo = torch.where(torch.isfinite(hi), tf32_round(w - hi), torch.zeros_like(w))
+    return hi, lo
 
 
 def fold_batch_norm(
@@ -57,8 +142,10 @@ def fused_pconv_eval_plain(
     bn_a: torch.Tensor,
     bn_b: torch.Tensor,
     x_skip: Optional[torch.Tensor] = None,
+    packed: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The stage in plain PyTorch; same arguments as ``fused_pconv_eval``."""
+    """The stage in plain PyTorch; same arguments as ``fused_pconv_eval``
+    (``packed`` is the kernel's and is not read)."""
     parts = (x,) if x_skip is None else (x, x_skip)
     kernel = weight.permute(2, 3, 1, 0)  # HWIO, the layout of ops.pconv
     out, new_mask = partial_conv2d_split(parts, mask, kernel, bias, stride, padding)
@@ -75,16 +162,7 @@ def _check_cuda_args(x, x_skip, mask, weight, vecs, stride, padding):
     if x_skip is not None:
         expect.append(("x_skip", x_skip, (b, h, w, cb)))
     expect += [(name, v, (cout,)) for name, v in zip(("bias", "bn_a", "bn_b"), vecs)]
-    for name, t, shape in expect:
-        if tuple(t.shape) != shape:
-            raise ValueError(f"fused_pconv_eval: {name} has shape {tuple(t.shape)}, needs {shape}")
-        if t.device != x.device or t.dtype != torch.float32 or not t.is_contiguous():
-            raise ValueError(
-                f"fused_pconv_eval: {name} must be a contiguous float32 tensor on "
-                f"{x.device}, got {t.dtype} on {t.device}, contiguous={t.is_contiguous()}"
-            )
-        if t.data_ptr() % 16:
-            raise ValueError(f"fused_pconv_eval: {name} is not 16-byte aligned")
+    _check_tensors(x.device, expect)
     if not (1 <= k <= 7 and stride in (1, 2) and 0 <= padding and cout % 4 == 0):
         raise ValueError(
             f"fused_pconv_eval: k={k} stride={stride} padding={padding} cout={cout} "
@@ -92,6 +170,27 @@ def _check_cuda_args(x, x_skip, mask, weight, vecs, stride, padding):
         )
     if b > 65535:
         raise ValueError(f"fused_pconv_eval: batch {b} above 65535")
+    if b * h * w >= 2**31:
+        raise ValueError(f"fused_pconv_eval: {b}x{h}x{w} pixels index past 2^31")
+
+
+def _check_tensors(device, expect):
+    for name, t, shape in expect:
+        if tuple(t.shape) != shape:
+            raise ValueError(f"fused_pconv_eval: {name} has shape {tuple(t.shape)}, needs {shape}")
+        if t.device != device or t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(
+                f"fused_pconv_eval: {name} must be a contiguous float32 tensor on "
+                f"{device}, got {t.dtype} on {t.device}, contiguous={t.is_contiguous()}"
+            )
+        if t.data_ptr() % 16:
+            raise ValueError(f"fused_pconv_eval: {name} is not 16-byte aligned")
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """The card's SM count, which plan_stage sizes the splits by."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def fused_pconv_eval(
@@ -104,13 +203,15 @@ def fused_pconv_eval(
     bn_a: torch.Tensor,
     bn_b: torch.Tensor,
     x_skip: Optional[torch.Tensor] = None,
+    packed: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One eval PConv stage, NHWC.
 
     x: [B,H,W,Ca]; x_skip: optional [B,H,W,Cb], the second half of an
     implicit channel concat; mask: [B,H,W,1]; weight: nn.Conv2d's own
-    [Cout,Ca+Cb,k,k]; bias, bn_a, bn_b: [Cout]. Returns
-    (out [B,OH,OW,Cout], new_mask [B,OH,OW,1]), both fp32.
+    [Cout,Ca+Cb,k,k]; bias, bn_a, bn_b: [Cout]; packed: optional
+    ``pack_pconv_weight(weight)``, else the MMA variant packs per call.
+    Returns (out [B,OH,OW,Cout], new_mask [B,OH,OW,1]), both fp32.
     """
     if x.device.type == "cpu":
         return fused_pconv_eval_plain(
@@ -129,29 +230,55 @@ def fused_pconv_eval(
     b, h, w, ca = x.shape
     cb = 0 if x_skip is None else x_skip.shape[-1]
     cout, k = weight.shape[0], weight.shape[-1]
-    # the kernel reads HWIO, Cout innermost, as float4 runs of 4 channels
-    kernel = weight.permute(2, 3, 1, 0).contiguous()
     oh = (h + 2 * padding - k) // stride + 1
     ow = (w + 2 * padding - k) // stride + 1
-    if oh < 1 or ow < 1:
-        raise ValueError(f"fused_pconv_eval: empty output {oh}x{ow}")
+    if oh < 1 or ow < 1 or b * oh * ow >= 2**31:
+        raise ValueError(f"fused_pconv_eval: output {b}x{oh}x{ow} empty or past 2^31 pixels")
+    plan = plan_stage(b * oh * ow, cout, ca, cb, k, sm_count(x.device))
     out = torch.empty((b, oh, ow, cout), dtype=torch.float32, device=x.device)
     new_mask = torch.empty((b, oh, ow, 1), dtype=torch.float32, device=x.device)
+    skip_ptr = None if x_skip is None else x_skip.data_ptr()
     lib = load_library()
+    variants = fused_pconv_eval.variants
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        check(
-            lib.tg_pconv_eval_f32(
-                x.data_ptr(), None if x_skip is None else x_skip.data_ptr(),
-                mask.data_ptr(), kernel.data_ptr(), bias.data_ptr(),
-                bn_a.data_ptr(), bn_b.data_ptr(), out.data_ptr(),
-                new_mask.data_ptr(), b, h, w, ca, cb, cout, k, stride, padding,
-                stream,
-            ),
-            "fused_pconv_eval",
-        )
+        if plan.variant == "simt":
+            # reads HWIO, Cout innermost, as float4 runs of 4 channels
+            kernel = weight.permute(2, 3, 1, 0).contiguous()
+            err = lib.tg_pconv_eval_f32(
+                x.data_ptr(), skip_ptr, mask.data_ptr(), kernel.data_ptr(), bias.data_ptr(),
+                bn_a.data_ptr(), bn_b.data_ptr(), out.data_ptr(), new_mask.data_ptr(),
+                b, h, w, ca, cb, cout, k, stride, padding, stream,
+            )
+            check(err, "fused_pconv_eval")
+            variants["simt"] += 1
+        else:
+            if packed is None:
+                packed = pack_pconv_weight(weight)
+            w_hi, w_lo = packed
+            _check_tensors(x.device, [(name, p, (cout, k, k, ca + cb))
+                                      for name, p in (("w_hi", w_hi), ("w_lo", w_lo))])
+            ws = ratio_ws = None
+            if plan.splits > 1:
+                ws = torch.empty((plan.splits, b * oh * ow, cout), dtype=torch.float32,
+                                 device=x.device)
+                ratio_ws = torch.empty(b * oh * ow, dtype=torch.float32, device=x.device)
+            err = lib.tg_pconv_eval_mma_f32(
+                x.data_ptr(), skip_ptr, mask.data_ptr(), w_hi.data_ptr(), w_lo.data_ptr(),
+                bias.data_ptr(), bn_a.data_ptr(), bn_b.data_ptr(), out.data_ptr(),
+                new_mask.data_ptr(), None if ws is None else ws.data_ptr(),
+                None if ratio_ws is None else ratio_ws.data_ptr(),
+                b, h, w, ca, cb, cout, k, stride, padding, plan.tile, plan.splits, stream,
+            )
+            check(err, "fused_pconv_eval")
+            if plan.splits > 1:
+                variants["mma_split"] += 1
+                variants["split_reduce"] += 1
+            else:
+                variants["mma"] += 1
     fused_pconv_eval.launches += 1
     return out, new_mask
 
 
 fused_pconv_eval.launches = 0
+fused_pconv_eval.variants = dict.fromkeys(VARIANTS, 0)

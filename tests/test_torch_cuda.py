@@ -19,6 +19,9 @@ from terra_gan_tpu_torch.ops.cuda.pconv_kernel import (
     fold_batch_norm,
     fused_pconv_eval,
     fused_pconv_eval_plain,
+    pack_pconv_weight,
+    plan_stage,
+    sm_count,
 )
 from terra_gan_tpu_torch.ops.cuda.upsample_kernel import (
     Upsample2x,
@@ -77,11 +80,11 @@ def card():
     return torch.device("cuda", 0)
 
 
-def stage_args(seed, hw, ca, cb, cout, k, s, dev):
+def stage_args(seed, hw, ca, cb, cout, k, s, dev, b=2):
     g = torch.Generator().manual_seed(seed)
-    x = torch.rand((2, hw, hw, ca), generator=g)
-    xs = torch.rand((2, hw, hw, cb), generator=g) if cb else None
-    m = (torch.rand((2, hw, hw, 1), generator=g) > 0.4).float()
+    x = torch.rand((b, hw, hw, ca), generator=g)
+    xs = torch.rand((b, hw, hw, cb), generator=g) if cb else None
+    m = (torch.rand((b, hw, hw, 1), generator=g) > 0.4).float()
     m[:, hw // 4 : hw // 2, hw // 4 : hw // 2] = 0
     w = torch.randn((cout, ca + cb, k, k), generator=g) * 0.1
     b = torch.randn(cout, generator=g) * 0.1
@@ -108,6 +111,72 @@ def test_pconv_kernel_matches_plain(card, k, s, ca, cb, cout, hw):
     assert fused_pconv_eval.launches == before + 1
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=RTOL, atol=ATOL)
     assert torch.equal(got_m, want_m)
+
+
+def plan_of(args, skip):
+    x, weight = args[0], args[2]
+    b, h, w, ca = x.shape
+    k, s, p = weight.shape[-1], args[4], args[5]
+    oh, ow = (h + 2 * p - k) // s + 1, (w + 2 * p - k) // s + 1
+    return plan_stage(b * oh * ow, weight.shape[0], ca, 0 if skip is None else skip.shape[-1],
+                      k, sm_count(x.device))
+
+
+@pytest.mark.parametrize(
+    "b,k,s,ca,cb,cout,hw",
+    [(8, 3, 1, 512, 512, 512, 8),   # dec7 at batch 8: (up, skip) of 512 each
+     (1, 3, 1, 512, 512, 512, 8),   # and at batch 1
+     (8, 3, 2, 512, 0, 512, 8),     # enc7 at batch 8: 8x8 -> 4x4
+     (1, 3, 2, 512, 0, 512, 8),
+     (1, 3, 1, 40, 24, 36, 5)],     # ragged chunks, Cout 36, 25 pixels split
+)
+def test_pconv_kernel_split_k_matches_plain(card, b, k, s, ca, cb, cout, hw):
+    args, skip = stage_args(b + k + ca + cb, hw, ca, cb, cout, k, s, card, b=b)
+    plan = plan_of(args, skip)
+    assert plan.variant == "mma" and plan.splits > 1
+    before = dict(fused_pconv_eval.variants)
+    got, got_m = fused_pconv_eval(*args, x_skip=skip)
+    want, want_m = fused_pconv_eval_plain(*args, x_skip=skip)
+    torch.cuda.synchronize()
+    used = {v: n - before[v] for v, n in fused_pconv_eval.variants.items()}
+    assert used == {"simt": 0, "mma": 0, "mma_split": 1, "split_reduce": 1}
+    # of max|plain|, as chip_smoke.py's K2 gate: sums of up to 9216 fp32
+    # products in another order, at outputs of a few units
+    assert (got - want).abs().max().item() <= RTOL * want.abs().max().item()
+    assert torch.equal(got_m, want_m)
+
+
+@pytest.mark.parametrize("split", [False, True])
+def test_pconv_kernel_is_bitwise_reproducible(card, split):
+    b, hw = (1, 16) if split else (8, 64)
+    args, skip = stage_args(11, hw, 256, 256, 256, 3, 1, card, b=b)
+    assert (plan_of(args, skip).splits > 1) == split
+    packed = pack_pconv_weight(args[2])
+    first = fused_pconv_eval(*args, x_skip=skip, packed=packed)
+    for _ in range(3):
+        again = fused_pconv_eval(*args, x_skip=skip)  # packed per call: the same planes
+        assert all(torch.equal(a, c) for a, c in zip(first, again))
+
+
+def test_model_packed_weights_follow_load_state_dict(card):
+    model = init_generator(16, torch.Generator().manual_seed(7), card)
+    g = np.random.default_rng(8)
+    x = torch.from_numpy(g.random((2, 64, 64, 1), dtype=np.float32)).to(card)
+    m = torch.from_numpy((g.random((2, 64, 64, 1)) > 0.3).astype(np.float32)).to(card)
+
+    def dec2(run):
+        with torch.inference_mode():
+            return capture_dec2(model, lambda: run(x * m, m))[1]
+
+    before = dec2(model)
+    planes = model.enc4.packed_weight()
+    sd = model.state_dict()
+    sd["enc4.input_conv.weight"] = sd["enc4.input_conv.weight"] * -2.0
+    model.load_state_dict(sd)
+    assert model.enc4.packed_weight() is not planes
+    after, want = dec2(model), dec2(model.forward_plain)
+    assert not np.array_equal(after, before)
+    assert nrmse(after, want) <= FEAT_NRMSE_TOL
 
 
 def test_pconv_kernel_rejects_what_it_does_not_take(card):
