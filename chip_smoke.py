@@ -7,24 +7,31 @@ Phases, one line of figures each (any failure raises and exits nonzero):
   2. build: the kernels of terra_gan_tpu_torch/csrc with nvcc (sm_90a),
      and per kernel ptxas's registers, spills and static shared memory
      and the tensor-core instructions (HMMA, HGMMA) in its SASS
-     (cuobjdump -sass); K2's MMA kernels must have some, and no K2
-     kernel may spill;
+     (cuobjdump -sass); K2's and K3's MMA kernels must have some, and no
+     K2 or K3 kernel may spill; K3's dynamic shared memory and the blocks
+     an SM holds;
   3. K2 fused_pconv_eval against its plain version at the 14 stage
      geometries of the full-width (base_width=64) 512^2 PConvUNet, batch 2,
-     with the model's cached weight planes: per stage its variant
+     with the stage's weight planes packed once: per stage its variant
      (3xTF32 MMA, split-K or SIMT), split count, TFLOP/s, and the time
      of one cuDNN fp32 conv of the same masked input (channels_last, the
      yardstick: the conv alone); two calls must be bitwise equal;
   4. K1 upsample2x_fwd against its plain version at the 7 decoder
-     shapes, fp32 (torch's bits) and bf16; its fp32 times at batch 8 too;
+     shapes, fp32 (torch's bits) and bf16; its fp32 times at batch 8 too,
+     beside F.interpolate's;
   5. K1 upsample2x_bwd against torch's own upsample backward at the same
      shapes, fp32 and bf16, and the adjointness <U x, g> = <x, U^T g>;
+     its fp32 times at batch 8 too, beside upsample_bilinear2d_backward's;
+     then pack_pconv_weights, the one launch a forward that packs K2's
+     TF32 weight planes of all 14 stages, against the plain packing
+     (bitwise);
   6. the slice: 16 synthetic uint8 DSM-like tiles through
      BatchedInpainter(chunk=8) with seeded random weights, held against
      the same model's plain path on the composite and on dec2's
      features, with the kernels' launch counts (13 K2, 6 K1 and 1 K3 a
-     forward; K2's launches by variant); the same feature check must fail the plain path run in
-     TF32, which shows it can see an error of that size;
+     forward; K2's launches by variant; 1 pack a forward); the same
+     feature check must fail the plain path run in TF32, which shows it
+     can see an error of that size;
   7. files: evaluate on one PNG tile, then inpaint_directory end to end
      on a directory of 512^2 PNGs;
   8. train: the port's train() for one epoch over 24 PNG tiles at batch
@@ -43,9 +50,10 @@ Phases, one line of figures each (any failure raises and exits nonzero):
      in the model's one-input form and with a seeded k_skip (the JAX
      form), with the model's tail weights and with seeded tail weights
      whose logits spread over units (features at unit RMS, xm = 0);
-     there the plain tail run in TF32 must fail the same bound. Times of
-     K3, its plain version and the
-     unfused kernel path (K1 + K2 dec1 + cuDNN's final conv + composite);
+     there the plain tail run in TF32 must fail the same bound; two calls
+     bitwise equal. Times of K3, its plain version and the unfused kernel
+     path (K1 + K2 dec1 + cuDNN's final conv + composite), and its bound
+     at the 3xTF32 rate for dec1 and fp32 for the final conv;
  11. serve: the port's HTTP server in a thread on 127.0.0.1 with the
      full-width 512^2 model, max_batch 8 and an auth secret; through
      the port's client 16 concurrent /inpaint requests and one
@@ -55,21 +63,22 @@ Phases, one line of figures each (any failure raises and exits nonzero):
  12. probes: the five probe kernels P1-P5 (csrc/probes.cu) against their
      plain versions at scripts/probe_mosaic.py's shapes and seed (P4 and
      P5 equal, P1-P3 within 1e-6 of max|plain|) and against numpy as
-     cli/probe_cuda.py prints it; their times beside an empty launch's,
-     per call (CUDA events) and on the device (torch.profiler);
+     cli/probe_cuda.py prints it; their times beside an empty launch's
+     and the library call's, per call (CUDA events) and on the device
+     (torch.profiler);
  13. doctor: ``doctor.main([])`` exits 0 with backend, kernel-build,
      model and probes PASS and all five probes OK;
  14. cli: the pipeline CLI's evaluate mode in-process (config read by
      yaml_lite, 2 parent grids of 8 512^2 PNG tiles, a master checkpoint
      of the seeded full-width model): exit 0, every inpainted PNG within
      1 grey level of inpaint_directory with the unfused tail, every
-     colored PNG the LUT of its inpainted one, 13 K2, 6 K1 and 1 K3
-     launches a forward; ``--mode train`` exits 2.
+     colored PNG the LUT of its inpainted one, 13 K2, 6 K1, 1 K3 and 1
+     pack launches a forward; ``--mode train`` exits 2.
 Then a JSON line of per-kernel figures (each with its bound: the larger
 of its bytes over 3.35 TB/s and its operations over the peak of the
 unit it runs on, from this run's shapes: the 67 TFLOP/s of fp32 outside
-the tensor cores, or for K2's MMA stages 495 TFLOP/s of dense TF32 over
-the 3 TF32 products of each fp32 product), and last
+the tensor cores, or for K2's MMA stages and K3's dec1 495 TFLOP/s of
+dense TF32 over the 3 TF32 products of each fp32 product), and last
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Without CUDA it exits nonzero before printing any result.
 """
@@ -78,6 +87,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import ctypes
 import io
 import json
 import logging
@@ -101,13 +111,16 @@ from terra_gan_tpu_torch.cli import doctor, main_pipeline
 from terra_gan_tpu_torch.cli.probe_cuda import probe_cases, probe_inputs, run_probes
 from terra_gan_tpu_torch.data.visualization import build_lut
 from terra_gan_tpu_torch.evaluation.inference import OUTPUT_SIZE, evaluate, inpaint_directory
-from terra_gan_tpu_torch.ops.cuda._build import build_info, find_nvcc, load_library
+from terra_gan_tpu_torch.models.generator import STAGES
+from terra_gan_tpu_torch.ops.cuda._build import build_info, check, find_nvcc, load_library
 from terra_gan_tpu_torch.ops.cuda.probe_kernels import PLAIN, PROBES, empty_launch
 from terra_gan_tpu_torch.ops.cuda.pconv_kernel import (
     MMA_TILES,
     fold_batch_norm,
     fused_pconv_eval,
     fused_pconv_eval_plain,
+    pack_pconv_weight,
+    pack_pconv_weights,
     plan_stage,
     sm_count,
 )
@@ -173,15 +186,17 @@ PROBE_REPLACES = {"probe_lane_reduce": 45, "probe_matvec_dot": 66, "probe_lane_c
                   "probe_mask_broadcast": 117, "probe_row_build": 138}
 # the card's peaks (NVIDIA's H100 SXM data sheet): fp32 outside the tensor
 # cores, dense TF32 on them, and device memory; a kernel's bound is the
-# larger of its two times. K2's MMA variant makes each fp32 product of 3
-# TF32 products (3xTF32), so its operations run at a third of the TF32 rate.
+# larger of its two times. K2's MMA variant and K3's dec1 make each fp32
+# product of 3 TF32 products (3xTF32), so they run at a third of the TF32 rate.
 FP32_FLOPS = 67e12
 TF32_FLOPS = 495e12
-K2_MMA_FLOPS = TF32_FLOPS / 3
+TF32X3_FLOPS = TF32_FLOPS / 3
 HBM_BYTES_PER_S = 3.35e12
 PEAKS = {"fp32": "fp32 outside the tensor cores, 67 TFLOP/s",
          "k2": "3xTF32: 3 TF32 products per fp32 product at 495 TFLOP/s (165 TFLOP/s of fp32 "
-               "products) for the MMA stages; 67 TFLOP/s fp32 for the SIMT stage (enc1)"}
+               "products) for the MMA stages; 67 TFLOP/s fp32 for the SIMT stage (enc1)",
+         "k3": "3xTF32 for dec1 (165 TFLOP/s of fp32 products), counted once, not the "
+               "recomputed halo; 67 TFLOP/s fp32 for the final conv and the skip term"}
 
 
 def require(cond: bool, msg: str) -> None:
@@ -344,12 +359,23 @@ def phase_build():
     for tile, (bm, bn) in enumerate(MMA_TILES):
         line("build", k2_mma_tile=f"{bm}x{bn}", dynamic_smem_k3=lib.tg_pconv_mma_smem_bytes(tile, 3),
              dynamic_smem_k5=lib.tg_pconv_mma_smem_bytes(tile, 5))
-    k2 = {fn: r for fn, r in report.items() if "pconv" in fn}
+    k2 = {fn: r for fn, r in report.items() if "pconv" in fn or "pack_tf32" in fn}
     mma = [r for fn, r in k2.items() if "pconv_mma_kernel" in fn]
     require(len(mma) == len(MMA_TILES) and all(r.get("hmma", 0) + r.get("hgmma", 0) > 0
                                                for r in mma),
             f"build: K2's MMA kernels show no tensor-core instructions: {k2}")
     require(all(r.get("spill_bytes") == 0 for r in k2.values()), f"build: a K2 kernel spills: {k2}")
+    smem, blocks, threads, tile = (ctypes.c_int() for _ in range(4))
+    check(lib.tg_decoder_tail_info(*(ctypes.byref(v) for v in (smem, blocks, threads, tile))),
+          "tg_decoder_tail_info")
+    k3 = {fn: r for fn, r in report.items() if "decoder_tail" in fn}
+    for fn, r in k3.items():
+        line("build", k3_kernel=fn, registers=r.get("registers"), spill_bytes=r.get("spill_bytes"),
+             dynamic_smem=smem.value, blocks_per_sm=blocks.value, threads=threads.value,
+             output_tile=f"{tile.value}x{tile.value}", hmma=r.get("hmma"), hgmma=r.get("hgmma"))
+    require(len(k3) == 1 and all(r.get("hmma", 0) > 0 for r in k3.values()),
+            f"build: K3 shows no tensor-core instructions: {k3}")
+    require(all(r.get("spill_bytes") == 0 for r in k3.values()), f"build: K3 spills: {k3}")
 
 
 def stage_inputs(st, h: int, ca: int, cb: int, batch: int, gen, dev):
@@ -385,7 +411,7 @@ def k2_stage(args, xs, packed, reps: int = REPS) -> dict:
     plan = plan_stage(b * oh * ow, cout, x.shape[-1], 0 if xs is None else xs.shape[-1],
                       weight.shape[-1], sm_count(x.device))
     flop = 2.0 * got.numel() * weight[0].numel()
-    peak = FP32_FLOPS if plan.variant == "simt" else K2_MMA_FLOPS
+    peak = FP32_FLOPS if plan.variant == "simt" else TF32X3_FLOPS
     err = (got - want).abs().max().item()
     return dict(variant=plan.variant, splits=plan.splits,
                 tile="-" if plan.tile < 0 else "x".join(map(str, MMA_TILES[plan.tile])),
@@ -454,7 +480,7 @@ def upsample_shapes(width: int):
 def phase_k1(model, dev):
     gen = torch.Generator().manual_seed(SEED + 2)
     worst_abs, ms, plain_ms, lib_ms, flop, moved = 0.0, 0.0, 0.0, 0.0, 0.0, 0
-    b8 = {"ms": 0.0, "plain_ms": 0.0, "flop": 0.0, "bytes": 0}
+    b8 = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "flop": 0.0, "bytes": 0}
     for h, c in upsample_shapes(model.base_width):
         x = torch.rand((STAGE_BATCH, h, h, c), generator=gen).to(dev)
         # fp32 at the profile's batch 8 as well (information only)
@@ -462,9 +488,12 @@ def phase_k1(model, dev):
         y8 = upsample2x_fwd(x8)
         b8["ms"] += time_ms(lambda: upsample2x_fwd(x8))
         b8["plain_ms"] += time_ms(lambda: upsample2x_fwd_plain(x8))
+        x8_nchw = x8.permute(0, 3, 1, 2)
+        b8["library_ms"] += time_ms(lambda: F.interpolate(x8_nchw, scale_factor=2, mode="bilinear",
+                                                          align_corners=False))
         b8["flop"] += 9.0 * y8.numel()
         b8["bytes"] += nbytes(x8, y8)
-        del x8, y8
+        del x8, y8, x8_nchw
         got, want = upsample2x_fwd(x), upsample2x_fwd_plain(x)
         err = (got - want).abs().max().item()
         xb = x.bfloat16()
@@ -489,8 +518,8 @@ def phase_k1(model, dev):
         moved += nbytes(x, got)
     b8_bound = bound(b8["flop"], b8["bytes"])
     line("k1_b8", batch=K1_B8_BATCH, shapes=7, ms=f"{b8['ms']:.4f}",
-         plain_ms=f"{b8['plain_ms']:.4f}", bound_ms=f"{b8_bound['bound_ms']:.4f}",
-         bound_by=b8_bound["bound_by"])
+         plain_ms=f"{b8['plain_ms']:.4f}", library_ms=f"{b8['library_ms']:.4f}",
+         bound_ms=f"{b8_bound['bound_ms']:.4f}", bound_by=b8_bound["bound_by"])
     return dict(max_abs_err=worst_abs, ms=ms, plain_ms=plain_ms, **bound(flop, moved),
                 library_ms=lib_ms)
 
@@ -498,7 +527,18 @@ def phase_k1(model, dev):
 def phase_k1_bwd(model, dev):
     gen = torch.Generator().manual_seed(SEED + 4)
     worst_abs, ms, plain_ms, lib_ms, flop, moved = 0.0, 0.0, 0.0, 0.0, 0.0, 0
+    b8 = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "flop": 0.0, "bytes": 0}
     for h, c in upsample_shapes(model.base_width):
+        # fp32 at the profile's batch 8 as well (information only)
+        g8 = torch.randn((K1_B8_BATCH, 2 * h, 2 * h, c), generator=gen).to(dev)
+        g8_nchw, size8 = g8.permute(0, 3, 1, 2), [K1_B8_BATCH, c, h, h]
+        b8["ms"] += time_ms(lambda: upsample2x_bwd(g8))
+        b8["plain_ms"] += time_ms(lambda: upsample2x_bwd_plain(g8))
+        b8["library_ms"] += time_ms(lambda: torch.ops.aten.upsample_bilinear2d_backward(
+            g8_nchw, [2 * h, 2 * h], size8, False, 2.0, 2.0))
+        b8["flop"] += 40.0 * g8.numel() / 4
+        b8["bytes"] += nbytes(g8) * 5 // 4
+        del g8, g8_nchw
         g = torch.randn((STAGE_BATCH, 2 * h, 2 * h, c), generator=gen).to(dev)
         got, want = upsample2x_bwd(g), upsample2x_bwd_plain(g)
         err = (got - want).abs().max().item()
@@ -532,8 +572,36 @@ def phase_k1_bwd(model, dev):
         lib_ms += t_l
         flop += 40.0 * got.numel()  # 20 FMAs a dx value: 4 rows of 4 taps, then the rows
         moved += nbytes(g, got)
+    b8_bound = bound(b8["flop"], b8["bytes"])
+    line("k1_bwd_b8", batch=K1_B8_BATCH, shapes=7, ms=f"{b8['ms']:.4f}",
+         plain_ms=f"{b8['plain_ms']:.4f}", library_ms=f"{b8['library_ms']:.4f}",
+         bound_ms=f"{b8_bound['bound_ms']:.4f}", bound_by=b8_bound["bound_by"])
     return dict(max_abs_err=worst_abs, ms=ms, plain_ms=plain_ms, **bound(flop, moved),
                 library_ms=lib_ms)
+
+
+def phase_pack(model):
+    """pack_pconv_weights, the one launch a forward that packs K2's TF32
+    planes of all 14 stages, against the plain packing: bitwise equal."""
+    weights = [getattr(model, n).input_conv.weight.detach() for n in STAGES]
+    got = pack_pconv_weights(weights)
+    want = [pack_pconv_weight(w) for w in weights]
+    torch.cuda.synchronize()
+    err = max((a - b).abs().max().item() for g, w in zip(got, want) for a, b in zip(g, w))
+    equal = all(torch.equal(a, b) for g, w in zip(got, want) for a, b in zip(g, w))
+    t_k = time_ms(lambda: pack_pconv_weights(weights))
+    t_p = time_ms(lambda: [pack_pconv_weight(w) for w in weights])
+    t_dev = device_ms(lambda: pack_pconv_weights(weights))
+    t_host = host_ms(lambda: pack_pconv_weights(weights))
+    n = sum(w.numel() for w in weights)
+    # per element a subtraction beside two roundings; it moves its bytes
+    fig = dict(max_abs_err=err, ms=t_k, plain_ms=t_p, library_ms=None, device_ms=t_dev,
+               host_ms=t_host, **bound(float(n), 12 * n))
+    line("pack", stages=len(weights), weights=n, bitwise=equal, ms=f"{t_k:.4f}",
+         device_ms=f"{t_dev:.4f}", host_ms=f"{t_host:.4f}", plain_ms=f"{t_p:.4f}",
+         bound_ms=f"{fig['bound_ms']:.4f}", bound_by=fig["bound_by"])
+    require(equal, f"pack: the kernel's planes differ from the plain packing ({err})")
+    return fig
 
 
 def dsm_tiles(n: int, size: int, seed: int):
@@ -614,7 +682,7 @@ def phase_slice(model, dev, counters):
          hole_mean=f"{out_f[holes].mean():.4f}", hole_std=f"{out_f[holes].std():.4f}",
          dec2_std=f"{torch.cat(want_feat).std().item():.4f}", forwards=forwards,
          k2_launches=launches["fused_pconv_eval"], k1_launches=launches["upsample2x_fwd"],
-         k3_launches=launches["fused_decoder_tail"],
+         k3_launches=launches["fused_decoder_tail"], pack_launches=launches["pack_pconv_weights"],
          k2_variants={v: launches[f"fused_pconv_eval.{v}"] for v in fused_pconv_eval.variants},
          float_tiles_per_s=f"{N_TILES / (t1 - t0):.2f}",
          u8_tiles_per_s=f"{N_TILES / (t2 - t1):.2f}",
@@ -629,7 +697,7 @@ def phase_slice(model, dev, counters):
     require(np.array_equal(out_f[~holes], imgs[~holes].astype(np.float32) / 255.0),
             "slice: valid pixels are not copied from the input")
     want = {"fused_pconv_eval": 13, "upsample2x_fwd": 6, "upsample2x_bwd": 0,
-            "fused_decoder_tail": 1}
+            "fused_decoder_tail": 1, "pack_pconv_weights": 1}
     require(all(launches[k] == v * forwards for k, v in want.items()),
             f"slice: launches {launches} in {forwards} forwards, want {want} each")
     # every stage is one launch of one variant, a split stage's sum the second
@@ -662,7 +730,7 @@ def phase_files(model, dev, counters):
         sizes = {Image.open(p).size for p in [one, *outs]}
         line("files", evaluate_launches=one_launches, tiles=N_FILES, written=len(outs),
              sizes=sorted(sizes), seconds=f"{seconds:.2f}")
-        require(one_launches == (13, 6, 0, 1), f"files: evaluate launched {one_launches}")
+        require(one_launches == (13, 6, 0, 1, 1), f"files: evaluate launched {one_launches}")
         require(next(model.parameters()).device == dev, "files: evaluate moved the model")
         require(len(outs) == N_FILES, f"files: wrote {len(outs)} of {N_FILES}")
         require(sizes == {(OUTPUT_SIZE, OUTPUT_SIZE)}, f"files: sizes {sizes}")
@@ -756,10 +824,10 @@ def phase_train(dev, counters):
             f"train: K1 fwd launched {launches['upsample2x_fwd']} times: 7 per train step, "
             "6 per validation forward")
     require(launches["fused_pconv_eval"] == 13 * val_fwd
-            and launches["fused_decoder_tail"] == val_fwd,
-            f"train: K2 and K3 launched {launches['fused_pconv_eval']} and "
-            f"{launches['fused_decoder_tail']} times: 13 and 1 per validation forward, "
-            "none in a train step")
+            and launches["fused_decoder_tail"] == launches["pack_pconv_weights"] == val_fwd,
+            f"train: K2, K3 and the pack launched {launches['fused_pconv_eval']}, "
+            f"{launches['fused_decoder_tail']} and {launches['pack_pconv_weights']} times: 13, 1 "
+            "and 1 per validation forward, none in a train step")
     require(saved_ok and n_adam[0] == 58 and n_adam[1] == 16,
             f"train: the checkpoint did not reload (Adam entries {n_adam})")
     require(state.generator.training, "train: G left in eval mode after validation")
@@ -832,7 +900,8 @@ def phase_train_grad(dev, counters):
          **{f"{k}_block_rel_l2_max": f"{v:.3e}" for k, v in worst.items()})
     for n in plain[1]:
         print(f"  {n}: " + " ".join(f"{k}={b[n]:.3e}" for k, b in blocks.items()), flush=True)
-    require(kernel_launches == [0, 7, 7, 0], f"train_grad: kernel path launched {kernel_launches}")
+    require(kernel_launches == [0, 7, 7, 0, 0],
+            f"train_grad: kernel path launched {kernel_launches}")
     require(up["kernel"] <= GRAD_TOL, f"train_grad: upsample-input gradient off by {up['kernel']}")
     require(worst["kernel"] <= GRAD_TOL, f"train_grad: a block's gradient off by {worst['kernel']}")
     require(up["tf32"] > GRAD_TOL and worst["tf32"] > GRAD_TOL,
@@ -882,6 +951,22 @@ def spread_tail_weights(c: int, dev, seed: int):
     return [torch.from_numpy(a).to(dev) for a in w]
 
 
+def k3_work(b: int, h: int, w: int, c: int, skip: bool) -> dict:
+    """K3's operations at d [b,h,w,c]: dec1's fp32 products, counted once
+    (not the halo the kernel computes again), and the fp32 FMAs of the final
+    conv and, with k_skip, the skip term."""
+    px = 4.0 * b * h * w
+    return {"dec1": 2.0 * px * 9 * c * c, "fp32": 2.0 * px * 9 * c * (2 if skip else 1)}
+
+
+def k3_bound(work: dict, moved: float) -> dict:
+    """K3's bound: dec1 at the 3xTF32 rate plus the rest at fp32's, or its
+    bytes over the memory's rate, whichever is larger."""
+    t_ops = (work["dec1"] / TF32X3_FLOPS + work["fp32"] / FP32_FLOPS) * 1e3
+    t_bytes = moved / HBM_BYTES_PER_S * 1e3
+    return {"bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
 def phase_k3(model, dev):
     imgs, masks = dsm_tiles(STAGE_BATCH, SIZE, SEED + 10)
     x = torch.from_numpy(imgs.astype(np.float32) / 255.0).to(dev)
@@ -915,6 +1000,7 @@ def phase_k3(model, dev):
             for skip in (False, True):
                 a = args(w, skip)
                 got = fused_decoder_tail(*a)
+                again = fused_decoder_tail(*a)
                 want = fused_decoder_tail_plain(*a)
                 torch.cuda.synchronize()
                 key = f"{wname}_{'skip' if skip else 'one_input'}"
@@ -923,6 +1009,7 @@ def phase_k3(model, dev):
                              torch.log(hole / (1 - hole)).std().item())
                 require(got.shape == (STAGE_BATCH, SIZE, SIZE, 1) and torch.isfinite(got).all().item(),
                         f"k3 {key}: shape {tuple(got.shape)} or non-finite output")
+                require(torch.equal(got, again), f"k3 {key}: two calls on the same inputs differ")
                 if wname == "spread":
                     torch.backends.cudnn.allow_tf32 = True
                     try:
@@ -938,19 +1025,20 @@ def phase_k3(model, dev):
         unfused = model.tail_forward(d, dm, xin, m, fused_pconv_eval, upsample2x_bilinear)
         fused = fused_decoder_tail(*a)
         vs_unfused = nrmse(fused, unfused)
-    hw = 4 * d.shape[1] * d.shape[2]
-    flop = 2.0 * STAGE_BATCH * hw * c * 9 * (c + 1)  # dec1, and the final conv
+    work = k3_work(*d.shape, skip=False)
     # library_ms: the unfused kernel path the fused tail replaces; no one
     # PyTorch call computes the tail
     fig = dict(ms=t_k, plain_ms=t_p, library_ms=t_u,
-               **bound(flop, nbytes(d, dm, xin, m, fused, *own)))
+               **k3_bound(work, nbytes(d, dm, xin, m, fused, *own)))
+    flop = work["dec1"] + work["fp32"]
     for key, (e, mx, logit_std) in errs.items():
         line("k3", form=key, nrmse=f"{e:.3e}", max_abs_err=f"{mx:.3e}",
              hole_logit_std=f"{logit_std:.4f}" if logit_std else "-")
     line("k3", d="x".join(map(str, d.shape)), ms=f"{t_k:.4f}", plain_ms=f"{t_p:.4f}",
          unfused_kernel_path_ms=f"{t_u:.4f}", bound_ms=f"{fig['bound_ms']:.4f}",
          bound_by=fig["bound_by"], gflop=f"{flop / 1e9:.2f}",
-         tflops=f"{flop / t_k / 1e9:.2f}", nrmse_vs_unfused=f"{vs_unfused:.3e}")
+         tflops=f"{flop / t_k / 1e9:.2f}", vs_bound=f"{t_k / fig['bound_ms']:.2f}",
+         nrmse_vs_unfused=f"{vs_unfused:.3e}")
     for key, (e, _, _) in errs.items():
         if key.endswith("_tf32"):
             require(e > K3_NRMSE_TOL,
@@ -1042,7 +1130,7 @@ def phase_serve(dev, counters):
             f"serve: /metrics {metrics_code} {metrics[:200]}")
     require(no_token == 401, f"serve: a request without a token got {no_token}")
     want = {"fused_decoder_tail": 1, "fused_pconv_eval": 13, "upsample2x_fwd": 6,
-            "upsample2x_bwd": 0}
+            "upsample2x_bwd": 0, "pack_pconv_weights": 1}
     require(all(launches[k] == v * forwards for k, v in want.items()),
             f"serve: launches {launches} in {forwards} forwards, want {want} each")
     return launches
@@ -1096,13 +1184,16 @@ def phase_probes(dev):
         t_p = time_ms(lambda: PLAIN[fn](*args))
         t_l = time_ms(lambda: libraries[name](*args)) if name in libraries else None
         t_dev = device_ms(lambda: fn(*args))
+        t_ldev = device_ms(lambda: libraries[name](*args)) if name in libraries else None
         fig = dict(max_abs_err=err, ms=t_k, plain_ms=t_p, **probe_work(name, args, got),
-                   library_ms=t_l)
+                   library_ms=t_l, device_ms=t_dev, library_device_ms=t_ldev)
         line("probes", probe=name, args="+".join("x".join(map(str, a.shape)) for a in args),
              out="x".join(map(str, got.shape)), max_abs_err=f"{err:.3e}",
              rel=f"{err / max(scale, 1e-30):.3e}", ms=f"{t_k:.4f}", plain_ms=f"{t_p:.4f}",
              library_ms="none" if t_l is None else f"{t_l:.4f}", empty_launch_ms=f"{empty_ms:.4f}",
-             device_ms=f"{t_dev:.5f}", empty_device_ms=f"{empty_device_ms:.5f}",
+             device_ms=f"{t_dev:.5f}",
+             library_device_ms="none" if t_ldev is None else f"{t_ldev:.5f}",
+             empty_device_ms=f"{empty_device_ms:.5f}",
              bound_ms=f"{fig['bound_ms']:.6f}", bound_by=fig["bound_by"])
         require(got.shape == want.shape, f"probes {name}: shape {tuple(got.shape)}")
         if exact:
@@ -1212,7 +1303,7 @@ def phase_cli(dev, counters):
     require(diff <= SLICE_U8_TOL, f"cli: {diff} grey levels from the unfused path")
     require(lut_ok, "cli: a colored PNG is not the LUT of its inpainted PNG")
     want = {"fused_pconv_eval": 13, "upsample2x_fwd": 6, "upsample2x_bwd": 0,
-            "fused_decoder_tail": 1}
+            "fused_decoder_tail": 1, "pack_pconv_weights": 1}
     require(all(launches[k] == v * forwards for k, v in want.items()),
             f"cli: launches {launches} in {forwards} forwards, want {want} each")
     return launches
@@ -1225,8 +1316,9 @@ def main() -> None:
     dev = torch.device("cuda", 0)
     model = init_generator(WIDTH, torch.Generator().manual_seed(SEED), dev)
     figures = {"fused_pconv_eval": phase_k2(model, dev), "upsample2x_fwd": phase_k1(model, dev),
-               "upsample2x_bwd": phase_k1_bwd(model, dev)}
-    counters = (fused_pconv_eval, upsample2x_fwd, upsample2x_bwd, fused_decoder_tail)
+               "upsample2x_bwd": phase_k1_bwd(model, dev), "pack_pconv_weights": phase_pack(model)}
+    counters = (fused_pconv_eval, upsample2x_fwd, upsample2x_bwd, fused_decoder_tail,
+                pack_pconv_weights)
     runs = [phase_slice(model, dev, counters)]
     phase_files(model, dev, counters)
     figures["fused_decoder_tail"] = phase_k3(model, dev)
@@ -1249,15 +1341,18 @@ def main() -> None:
         "upsample2x_fwd": ("upsample2x.cu", "terra_gan_tpu/ops/pallas/upsample_kernel.py:198"),
         "upsample2x_bwd": ("upsample2x.cu", "terra_gan_tpu/ops/pallas/upsample_kernel.py:204"),
         "fused_decoder_tail": ("decoder_tail.cu", "terra_gan_tpu/ops/pallas/tail_kernel.py:226"),
+        # part of K2's port: its weight planes (the TPU kernel reads the weight as it is)
+        "pack_pconv_weights": ("pconv_eval.cu", "terra_gan_tpu/ops/pallas/pconv_kernel.py:297"),
         **{name: ("probes.cu", f"scripts/probe_mosaic.py:{ln}")
            for name, ln in PROBE_REPLACES.items()},
     }
     require(all(launches[name] > 0 for name in sources),
             f"a kernel of the main paths was never launched there: {launches}")
+    peaks = {"fused_pconv_eval": "k2", "fused_decoder_tail": "k3"}
     kernels = [
         {"name": name, "route": "cuda", "source": f"terra_gan_tpu_torch/csrc/{src}",
          "replaces": replaces, "launches": launches[name], **figures[name],
-         "peak": PEAKS["k2" if name == "fused_pconv_eval" else "fp32"]}
+         "peak": PEAKS[peaks.get(name, "fp32")]}
         for name, (src, replaces) in sources.items()
     ]
     kernels[0]["variants"] = {v: launches[f"fused_pconv_eval.{v}"]

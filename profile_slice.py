@@ -19,14 +19,17 @@ leg measures
      (one cuDNN fp32 conv of the same masked input, channels_last), the
      TFLOP/s of each, the bound at the unit's peak, the wrapper's host
      time a call; the packing of the weight into K2's TF32 planes,
-     timed alone (the model caches it, a raw call pays it); and, for
+     timed alone, plain and by the pack kernel; and, for
      the MMA stages, the planned kernel, the kernel on the other tile
      and, where the plan splits K, unsplit, each through the C entry
      called directly (the reasons for plan_stage's choices);
-  5. the tail per call at batch 1, 8 and 32 on the model's own dec2
+  5. the tail per call at batch 1, 8, 16 and 32 on the model's own dec2
      outputs: K3 (the model's eval tail), its plain version and the
      unfused kernel path it replaces (K1, K2's dec1, cuDNN's final conv,
-     the composite), ms and K3's TFLOP/s beside its bound.
+     the composite), ms and K3's TFLOP/s beside its bound (dec1 at the
+     3xTF32 rate, the final conv at fp32's).
+The inference leg also times the forward's one pack of K2's weight
+planes (all 14 stages, ``PConvUNet.packed_weights``).
 
 The serving leg starts the port's server (max_batch 16, the JAX
 default) in a thread on 127.0.0.1 and drives it through the port's
@@ -71,11 +74,12 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from chip_smoke import (
-    SEED, SIZE, WIDTH, bound, dec2_outputs, device_batch, dsm_tiles, k2_stage, line,
-    phase_build, phase_env, stage_geometries, stage_inputs, sum_bounds, time_ms, train_state,
-    unfused_forward, upsample_shapes,
+    SEED, SIZE, WIDTH, bound, dec2_outputs, device_batch, device_ms, dsm_tiles, host_ms,
+    k2_stage, k3_bound, k3_work, line, phase_build, phase_env, stage_geometries, stage_inputs,
+    sum_bounds, time_ms, train_state, unfused_forward, upsample_shapes,
 )
 from terra_gan_tpu_torch.evaluation.inference import OUTPUT_SIZE
+from terra_gan_tpu_torch.models.generator import STAGES
 from terra_gan_tpu_torch.ops.cuda.tail_kernel import fused_decoder_tail, fused_decoder_tail_plain
 from terra_gan_tpu_torch.ops.resize import upsample2x_bilinear
 from terra_gan_tpu_torch.serving import InpaintClient, InpaintService, make_server
@@ -86,6 +90,7 @@ from terra_gan_tpu_torch.ops.cuda.pconv_kernel import (
     MMA_TILES,
     fused_pconv_eval,
     pack_pconv_weight,
+    pack_pconv_weights,
     plan_stage,
     sm_count,
 )
@@ -93,7 +98,7 @@ from terra_gan_tpu_torch.parallel.infer import BatchedInpainter
 from terra_gan_tpu_torch.utils.weights import init_generator
 
 BATCHES = (1, 8, 16, 32)
-TAIL_BATCHES = (1, 8, 32)
+TAIL_BATCHES = (1, 8, 16, 32)
 SERVE_MAX_BATCH = 16
 SERVE_LOADS = ((1, 16), (16, 64))  # (concurrency, requests)
 CHUNKS = (8, 16, 32)
@@ -120,6 +125,13 @@ def forward_rates(model, dev, imgs, masks):
                    plain_tiles_per_s=1e3 * b / plain)
         line("forward", **{k: f"{v:.4f}" if isinstance(v, float) else v for k, v in row.items()})
         rows.append(row)
+    with torch.inference_mode():  # the pack's call, its host time, and its device time
+        pack = time_ms(model.packed_weights)
+        pack_host, pack_dev = host_ms(model.packed_weights), device_ms(model.packed_weights)
+    n = sum(getattr(model, s).input_conv.weight.numel() for s in STAGES)
+    line("forward", pack_ms=f"{pack:.4f}", pack_host_ms=f"{pack_host:.4f}",
+         pack_device_ms=f"{pack_dev:.4f}", weights=n, **bound(float(n), 12.0 * n))
+    rows.append(dict(pack_ms=pack, pack_host_ms=pack_host, pack_device_ms=pack_dev, weights=n))
     return rows
 
 
@@ -225,6 +237,7 @@ def stage_rates(model, dev):
             weight = args[2]
             r = k2_stage(args, xs, packed)
             pack = time_ms(lambda: pack_pconv_weight(weight))
+            pack_kernel = time_ms(lambda: pack_pconv_weights([weight]))
             alt = {}
             if r["variant"] == "mma":
                 b, oh, ow, cout = map(int, r["out"].split("x"))
@@ -240,6 +253,7 @@ def stage_rates(model, dev):
             row = dict(batch=batch, stage=name, variant=r["variant"], tile=r["tile"],
                        splits=r["splits"], ms=r["ms"], plain_ms=r["plain_ms"],
                        library_ms=r["library_ms"], host_ms=r["host_ms"], pack_ms=pack,
+                       pack_kernel_ms=pack_kernel,
                        gflop=r["flop"] / 1e9,
                        tflops=r["tflops"], plain_tflops=r["flop"] / r["plain_ms"] / 1e9,
                        library_tflops=r["flop"] / r["library_ms"] / 1e9,
@@ -277,12 +291,13 @@ def tail_rates(model, dev, imgs, masks):
                                                              fused_decoder_tail_plain))
             unfused = time_ms(lambda: model.tail_forward(d, dm, xin, m, fused_pconv_eval,
                                                          upsample2x_bilinear))
-        c = d.shape[-1]
-        flop = 2.0 * b * SIZE * SIZE * c * 9 * (c + 1)  # dec1 and the final conv
+        work = k3_work(*d.shape, skip=False)
+        flop = work["dec1"] + work["fp32"]
         weights = sum(p.numel() for p in (*model.dec1.parameters(), *model.final.parameters()))
-        moved = 4 * (d.numel() + dm.numel() + 3 * xin.numel() + weights + 4 * c)
+        moved = 4 * (d.numel() + dm.numel() + 3 * xin.numel() + weights + 4 * d.shape[-1])
         row = dict(batch=b, ms=ms, plain_ms=plain, unfused_ms=unfused, gflop=flop / 1e9,
-                   tflops=flop / ms / 1e9, **bound(flop, moved))
+                   tflops=flop / ms / 1e9, k3_faster=ms < unfused, **k3_bound(work, moved))
+        row["vs_bound"] = ms / row["bound_ms"]
         line("tail", **{k: f"{v:.4f}" if isinstance(v, float) else v for k, v in row.items()})
         rows.append(row)
         del d, dm, x, m, xin

@@ -19,7 +19,9 @@ The JAX CLI's flags and contracts for the mode the port runs:
 It runs on the card unless ``--device cpu`` is given; without CUDA the
 default device raises. Not ported yet, and refused with exit code 2:
 ``--mode train`` and ``--mode human_guided_train``, ``--mesh``, and a
-config that sets ``evaluation.quant``. Experiment tracking is not ported:
+config that sets ``evaluation.quant`` or a bf16 ``training.compute_dtype``
+(``bf16`` or ``bfloat16``; ``float32`` or no key is the fp32 the port
+runs). Experiment tracking is not ported:
 with ``experiment_tracking.enabled`` the run logs a warning and goes on
 untracked.
 """
@@ -79,6 +81,13 @@ def _image_size(cfg) -> int:
     """Model tile size; 512 in the reference (train.py:67-70). The
     data.image_size config key exists for small-scale tests/dev runs."""
     return int((cfg.raw.get("data") or {}).get("image_size", 512))
+
+
+def _bf16_requested(cfg) -> bool:
+    """training.compute_dtype asks for the bf16 perf mode, as the JAX CLI
+    reads it (main_pipeline.py:103-108); anything else is fp32."""
+    name = (cfg.raw.get("training") or {}).get("compute_dtype")
+    return str(name).lower() in ("bf16", "bfloat16")
 
 
 def run_evaluation_mode(
@@ -168,6 +177,10 @@ def main(argv=None) -> int:
     if cfg.evaluation.quant is not None:
         logger.error("evaluation.quant (%s) is not ported yet: the PyTorch port "
                      "evaluates in fp32", cfg.evaluation.quant)
+        return NOT_PORTED_EXIT
+    if _bf16_requested(cfg):
+        logger.error("training.compute_dtype (%s) is not ported yet: the PyTorch port "
+                     "evaluates in fp32", cfg.raw["training"]["compute_dtype"])
         return NOT_PORTED_EXIT
     if not args.no_tracking and cfg.experiment_tracking.enabled:
         logger.warning("experiment tracking is not ported yet: this run is not tracked")

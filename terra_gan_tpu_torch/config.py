@@ -9,7 +9,8 @@ Some fields configure parts of the JAX package the port has not ported
 (remat, the async checkpoint, feed workers, the QAT tail, quantised
 evaluation): they are read and kept so that a config round-trips, and
 the CLI refuses the ones whose absence would change a result
-(``evaluation.quant``).
+(``evaluation.quant``, and ``training.compute_dtype`` when it asks for
+bf16).
 
 ``LoopConfig`` is the flat view of ``TrainingConfig`` that the port's
 training loop reads (``LoopConfig.from_training``).

@@ -26,9 +26,12 @@
 //   and every product is lo*hi + hi*lo, then hi*hi, into one fp32
 //   accumulator: the per-product error is about 2^-22 (TF32 alone:
 //   2^-11), which the eval forward's 1e-6 NRMSE gate on dec2's features
-//   needs (plain TF32 reads 1.45e-5 there). The weights arrive packed
-//   once by the wrapper (pack_pconv_weight: two planes, hi and lo, OHWI,
-//   K-major); x*m is formed and split in registers, as A goes from
+//   needs (plain TF32 reads 1.45e-5 there). The weights arrive as two
+//   planes, hi and lo, OHWI, K-major, from pack_tf32_kernel below: the
+//   model packs every stage's planes in one launch at each eval forward,
+//   so they are never older than the weights, however these were written
+//   (an in-place write through .data moves no version counter); x*m is
+//   formed and split in registers, as A goes from
 //   shared memory into the MMA fragments, so it never reaches device
 //   memory and the mask keeps its float semantics (0 * NaN is NaN).
 //
@@ -85,6 +88,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "mma_tf32.cuh"
 
 namespace {
 
@@ -269,44 +274,6 @@ __host__ __device__ constexpr int mma_smem_floats(int bm, int bn, int kk) {
          + bm                                            // ratios
          + bm * kk;                                      // mask taps
 }
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, asynchronously; zero-filled when !pred
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool pred) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
-               "l"(src), "r"(pred ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// round to TF32, to nearest with ties away from zero (pack_pconv_weight's rounding)
-__device__ __forceinline__ uint32_t tf32_rna(float v) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
-  return r;
-}
-
-// d += a * b on the tensor cores: A 16x8 (row), B 8x8 (col), TF32 in, fp32 sum
-__device__ __forceinline__ void mma_tf32(float* d, const uint32_t* a, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ float relu_keep_nan(float v) { return v < 0.f ? 0.f : v; }
 
 template <int WM, int WN>
 __global__ void __launch_bounds__(kMmaThreads, 1) pconv_mma_kernel(const MmaArgs p) {
@@ -614,6 +581,47 @@ int launch_mma(const MmaArgs& a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------- pack
+
+constexpr int kMaxPack = 16;  // weights a launch packs
+
+struct PackArgs {
+  const float* w[kMaxPack];  // nn.Conv2d's [Cout][Cin][k][k]
+  float* hi[kMaxPack];       // [Cout][k][k][Cin], TF32 hi
+  float* lo[kMaxPack];       // the same, TF32 residual (0 where hi is not finite)
+  int cin[kMaxPack];
+  int kk[kMaxPack];
+  int end[kMaxPack];         // running output-channel counts: a block each
+  int n;
+};
+
+// pack_pconv_weight of up to kMaxPack weights in one launch, bound by its
+// bytes: a block per output channel transposes its [Cin][k*k] slab to
+// [k*k][Cin] through shared memory, reading and writing contiguous runs
+// (the model's k*k are odd, so the strided reads of shared memory meet no
+// bank conflict).
+__global__ void __launch_bounds__(256) pack_tf32_kernel(const __grid_constant__ PackArgs p) {
+  extern __shared__ float slab[];
+  int s = 0;
+  while ((int)blockIdx.x >= p.end[s]) ++s;
+  const int n = blockIdx.x - (s ? p.end[s - 1] : 0);
+  const int cin = p.cin[s];
+  const int kk = p.kk[s];
+  const int len = cin * kk;
+  const float* const src = p.w[s] + (size_t)n * len;
+  for (int i = threadIdx.x; i < len; i += blockDim.x) slab[i] = src[i];
+  __syncthreads();
+  float* const hi = p.hi[s] + (size_t)n * len;
+  float* const lo = p.lo[s] + (size_t)n * len;
+  for (int e = threadIdx.x; e < len; e += blockDim.x) {
+    const int tap = e / cin;
+    const float v = slab[(e - tap * cin) * kk + tap];
+    const float h = __uint_as_float(tf32_rna(v));
+    hi[e] = h;
+    lo[e] = isfinite(h) ? __uint_as_float(tf32_rna(v - h)) : 0.f;
+  }
+}
+
 }  // namespace
 
 // Plain C entry points for ctypes. x_b may be null when Cb == 0.
@@ -700,4 +708,38 @@ extern "C" int tg_pconv_eval_mma_f32(const float* xa, const float* xb, const flo
   }
   return tile == 0 ? launch_mma<2, 4>(a, (cudaStream_t)stream)
                    : launch_mma<4, 2>(a, (cudaStream_t)stream);
+}
+
+// The MMA variant's weight planes of n <= 16 weights in one launch: w[i]
+// [cout[i]][cin[i]][k[i]][k[i]] into hi[i] and lo[i] [cout][k][k][cin];
+// cin * k * k floats within a block's shared memory.
+extern "C" int tg_pack_tf32_planes(const float* const* w, float* const* hi, float* const* lo,
+                                   const int* cout, const int* cin, const int* k, int n,
+                                   void* stream) {
+  if (n < 1 || n > kMaxPack) return (int)cudaErrorInvalidValue;
+  PackArgs p;
+  p.n = n;
+  long long blocks = 0, slab = 0;
+  for (int s = 0; s < n; ++s) {
+    const long long len = (long long)cin[s] * k[s] * k[s];
+    if (cout[s] < 1 || cin[s] < 1 || k[s] < 1 || w[s] == nullptr || hi[s] == nullptr ||
+        lo[s] == nullptr) {
+      return (int)cudaErrorInvalidValue;
+    }
+    p.w[s] = w[s];
+    p.hi[s] = hi[s];
+    p.lo[s] = lo[s];
+    p.cin[s] = cin[s];
+    p.kk[s] = k[s] * k[s];
+    blocks += cout[s];
+    p.end[s] = (int)blocks;
+    slab = len > slab ? len : slab;
+  }
+  const long long smem = slab * (long long)sizeof(float);
+  if (blocks > 0x7fffffff || smem > 232448) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(pack_tf32_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  pack_tf32_kernel<<<(int)blocks, 256, (size_t)smem, (cudaStream_t)stream>>>(p);
+  return (int)cudaGetLastError();
 }

@@ -19,7 +19,9 @@ up, so pad-to-match crops), and in train mode (K3 has no backward),
 the forward runs the unfused tail, ``tail_forward``.
 
 In eval mode every PConv stage outside K3 is one ``fused_pconv_eval``
-call (K2); in train mode a stage is ``ops.pconv.partial_conv2d_split``,
+call (K2), whose TF32 weight planes the forward packs for all stages in
+one launch first (``packed_weights``), so they are never older than
+the weights; in train mode a stage is ``ops.pconv.partial_conv2d_split``,
 then ``nn.BatchNorm2d`` on the batch statistics (torch's own train-mode
 semantics, which the JAX package's ``TorchBatchNorm`` emulates), then
 ReLU. In both modes every bilinear x2 outside K3 is
@@ -38,7 +40,7 @@ state of a reference ``.pth`` is numbered by.
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -48,7 +50,7 @@ from ..ops.cuda.pconv_kernel import (
     fold_batch_norm,
     fused_pconv_eval,
     fused_pconv_eval_plain,
-    pack_pconv_weight,
+    pack_pconv_weights,
 )
 from ..ops.cuda.tail_kernel import fused_decoder_tail, fused_decoder_tail_plain
 from ..ops.cuda.upsample_kernel import upsample2x_fwd_plain
@@ -56,6 +58,7 @@ from ..ops.pconv import partial_conv2d_split
 from ..ops.resize import pad_to_match, upsample2x_bilinear, upsample2x_nearest
 
 StageFn = Callable[..., Tuple[torch.Tensor, torch.Tensor]]
+STAGES = tuple(f"enc{i}" for i in range(1, 8)) + tuple(f"dec{n}" for n in range(7, 0, -1))
 
 
 class _MaskConv(nn.Module):
@@ -79,17 +82,13 @@ class PConv2d(nn.Module):
         self.input_conv = nn.Conv2d(in_ch, out_ch, k, stride, padding, bias=True)
         self.mask_conv = _MaskConv(k)
         self.bn = nn.BatchNorm2d(out_ch)
-        self._packed_key, self._packed = None, None
 
     def packed_weight(self) -> Tuple[torch.Tensor, torch.Tensor]:
-        """K2's TF32 planes of ``input_conv.weight`` (``pack_pconv_weight``),
-        packed again whenever the weight's storage or version changes:
-        ``load_state_dict``, an optimizer step, ``.to()``."""
-        w = self.input_conv.weight
-        key = (w.data_ptr(), w._version, w.device)
-        if key != self._packed_key:
-            self._packed, self._packed_key = pack_pconv_weight(w), key
-        return self._packed
+        """K2's TF32 planes of ``input_conv.weight`` as it is now
+        (``pack_pconv_weight``; on a card one launch). Nothing caches them:
+        a cache keyed on the weight's version would miss an in-place write
+        through ``.data``."""
+        return pack_pconv_weights([self.input_conv.weight])[0]
 
     def forward(
         self,
@@ -97,11 +96,14 @@ class PConv2d(nn.Module):
         mask: torch.Tensor,
         skip: Optional[torch.Tensor] = None,
         stage: StageFn = fused_pconv_eval,
+        packed: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """(x, skip) are the two halves of an implicit channel concat.
 
         ``stage`` is the eval-mode stage (K2 or its plain version, both
-        taking ``packed``); train mode is plain torch whatever it is.
+        taking ``packed``, the weight's planes packed in this forward; K2
+        packs its own without them); train mode is plain torch whatever
+        it is.
         """
         if self.training:
             parts = (x,) if skip is None else (x, skip)
@@ -115,8 +117,6 @@ class PConv2d(nn.Module):
         a, bb = fold_batch_norm(
             bn.weight, bn.bias, bn.running_mean, bn.running_var, bn.eps
         )
-        # on a card the kernel reads the cached TF32 planes, not the weight
-        packed = self.packed_weight() if self.input_conv.weight.is_cuda else None
         return stage(
             x, mask, self.input_conv.weight, self.input_conv.bias, self.stride,
             self.padding, a, bb, x_skip=skip, packed=packed,
@@ -146,9 +146,12 @@ class PConvUNet(nn.Module):
         for n, c_up, c_skip, cout in dec:
             self.add_module(f"dec{n}", PConv2d(c_up + c_skip, cout, 3, 1, 1))
         self.final = nn.Conv2d(w, 1, 3, padding=1)
+        self._planes, self._planes_key = None, None  # packed_weights' buffers
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-        return self._run(x, mask, fused_pconv_eval, upsample2x_bilinear, fused_decoder_tail)
+        planes = self.packed_weights() if not self.training else None
+        return self._run(x, mask, fused_pconv_eval, upsample2x_bilinear, fused_decoder_tail,
+                         planes)
 
     def forward_plain(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         """The same forward through the kernels' plain versions, on any device,
@@ -160,19 +163,46 @@ class PConvUNet(nn.Module):
             x, mask, fused_pconv_eval_plain, upsample2x_fwd_plain, fused_decoder_tail_plain
         )
 
-    def _run(self, x, mask, stage: StageFn, upsample, tail) -> torch.Tensor:
-        h, m = self.decode(x, mask, stage, upsample)
+    def packed_weights(self) -> Optional[Dict[str, Tuple[torch.Tensor, torch.Tensor]]]:
+        """{stage: K2's TF32 planes of its weight} for all 14 stages, packed
+        from the weights as they are now in one launch (``pack_pconv_weights``);
+        None on the CPU, where K2 is its plain version and reads no planes.
+
+        The contents are packed anew at every call. The buffers are kept for
+        the next call on the same stream while the weights' storage stands
+        (their allocation is most of the call's host time), so the planes a
+        call returns hold until the next one."""
+        if not self.final.weight.is_cuda:
+            self._planes = self._planes_key = None
+            return None
+        weights = [getattr(self, n).input_conv.weight for n in STAGES]
+        key = (torch.cuda.current_stream(weights[0].device).cuda_stream,
+               *(w.data_ptr() for w in weights))
+        if key != self._planes_key:
+            self._planes, self._planes_key = None, key
+        self._planes = pack_pconv_weights(weights, out=self._planes)
+        return dict(zip(STAGES, self._planes))
+
+    def _run(self, x, mask, stage: StageFn, upsample, tail, planes=None) -> torch.Tensor:
+        h, m = self.decode(x, mask, stage, upsample, planes)
         exact_2x = x.shape[1] == 2 * h.shape[1] and x.shape[2] == 2 * h.shape[2]
         if self.training or not exact_2x:
-            return self.tail_forward(h, m, x, mask, stage, upsample)
+            return self.tail_forward(h, m, x, mask, stage, upsample, planes)
         return self.fused_tail_forward(h, m, x, mask, tail)
 
-    def decode(self, x, mask, stage: StageFn, upsample) -> Tuple[torch.Tensor, torch.Tensor]:
-        """The encoder and the decoder up to dec2: dec2's (features, mask)."""
+    def _stage(self, name: str, planes, *args, **kw):
+        packed = None if planes is None else planes[name]
+        return getattr(self, name)(*args, packed=packed, **kw)
+
+    def decode(self, x, mask, stage: StageFn, upsample,
+               planes=None) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The encoder and the decoder up to dec2: dec2's (features, mask).
+        ``planes``: ``packed_weights()`` of this forward, or None (K2 on a
+        card then packs each stage's own)."""
         feats, masks = [x], [mask]
         h, m = x, mask
         for i in range(1, 8):
-            h, m = getattr(self, f"enc{i}")(h, m, stage=stage)
+            h, m = self._stage(f"enc{i}", planes, h, m, stage=stage)
             feats.append(h)
             masks.append(m)
 
@@ -180,19 +210,18 @@ class PConvUNet(nn.Module):
             skip_f, skip_m = feats[n - 1], masks[n - 1]
             up_f = pad_to_match(upsample(h), skip_f.shape[1], skip_f.shape[2])
             up_m = pad_to_match(upsample2x_nearest(m), skip_m.shape[1], skip_m.shape[2])
-            h, m = getattr(self, f"dec{n}")(
-                up_f, torch.maximum(up_m, skip_m), skip=skip_f, stage=stage
-            )
+            h, m = self._stage(f"dec{n}", planes, up_f, torch.maximum(up_m, skip_m),
+                               skip=skip_f, stage=stage)
         return h, m
 
-    def tail_forward(self, h, m, x, mask, stage: StageFn, upsample) -> torch.Tensor:
+    def tail_forward(self, h, m, x, mask, stage: StageFn, upsample, planes=None) -> torch.Tensor:
         """The unfused tail from dec2's (features, mask): upsample, dec1's
         stage, the final conv, the sigmoid and the composite. Train mode
         and a tail that is not an exact 2x run it; on a card it is also
         what K3 is held against."""
         h = pad_to_match(upsample(h), x.shape[1], x.shape[2])
         m = pad_to_match(upsample2x_nearest(m), mask.shape[1], mask.shape[2])
-        h, _ = self.dec1(h, torch.maximum(m, mask), stage=stage)
+        h, _ = self._stage("dec1", planes, h, torch.maximum(m, mask), stage=stage)
 
         out = F.conv2d(h.permute(0, 3, 1, 2), self.final.weight, self.final.bias, padding=1)
         out = torch.sigmoid(out).permute(0, 2, 3, 1)

@@ -114,12 +114,16 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.tg_pconv_eval_mma_f32.argtypes = [_P] * 12 + [_I] * 11 + [_P]
     lib.tg_pconv_mma_smem_bytes.restype = _I
     lib.tg_pconv_mma_smem_bytes.argtypes = [_I, _I]
+    lib.tg_pack_tf32_planes.restype = _I
+    lib.tg_pack_tf32_planes.argtypes = [_P] * 6 + [_I, _P]
     lib.tg_upsample2x_fwd.restype = _I
     lib.tg_upsample2x_fwd.argtypes = [_P, _P] + [_I] * 5 + [_P]
     lib.tg_upsample2x_bwd.restype = _I
     lib.tg_upsample2x_bwd.argtypes = [_P, _P] + [_I] * 5 + [_P]
     lib.tg_decoder_tail_f32.restype = _I
     lib.tg_decoder_tail_f32.argtypes = [_P] * 12 + [_I] * 4 + [_P]
+    lib.tg_decoder_tail_info.restype = _I
+    lib.tg_decoder_tail_info.argtypes = [_P] * 4
     for name, n_ptr, n_int in (("lane_reduce", 3, 2), ("matvec_dot", 3, 2),
                                ("lane_concat_dot", 3, 3), ("mask_broadcast", 3, 2),
                                ("row_build", 2, 2), ("empty", 0, 0)):

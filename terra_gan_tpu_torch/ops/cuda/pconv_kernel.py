@@ -17,7 +17,11 @@ note there gives the design. It has two variants, picked by shape in
   accuracy), for channel counts that are multiples of 4, with split-K
   (``mma_split`` then ``split_reduce``) where the output tiles fill the
   card's SMs badly. It reads the weights as ``pack_pconv_weight``'s two
-  TF32 planes; ``PConv2d`` caches them, a raw call packs them itself.
+  TF32 planes. ``pack_pconv_weights`` packs many weights in one launch:
+  ``PConvUNet``'s eval forward packs all its stages in every forward,
+  so the planes are never older than the weights (an in-place write
+  through ``.data`` moves no version counter a cache could key on); a
+  raw call without ``packed`` packs its own.
 - ``simt``: fp32 FMA, for the rest (enc1, one input channel).
 
 It takes every stage of the model: k up to 7, stride 1 or 2, outputs
@@ -31,14 +35,15 @@ no backward, as in the JAX package, where a train-mode stage is the
 plain conv and BatchNorm: on a CUDA tensor under autograd it raises
 rather than return a result cut from the graph. ``fused_pconv_eval.
 launches`` counts stages (calls), ``fused_pconv_eval.variants`` the CUDA
-launches of each variant.
+launches of each variant, ``pack_pconv_weights.launches`` the packs.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
 import math
-from typing import NamedTuple, Optional, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -118,6 +123,57 @@ def pack_pconv_weight(weight: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]
     hi = tf32_round(w)
     lo = torch.where(torch.isfinite(hi), tf32_round(w - hi), torch.zeros_like(w))
     return hi, lo
+
+
+MAX_PACK = 16  # weights one pack launch takes (csrc/pconv_eval.cu kMaxPack)
+
+
+def pack_pconv_weights(
+    weights: Sequence[torch.Tensor],
+    out: Optional[List[Tuple[torch.Tensor, torch.Tensor]]] = None,
+) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+    """``pack_pconv_weight`` of each weight. On the CPU the plain version;
+    on a card one launch of ``pack_tf32_kernel`` per MAX_PACK weights,
+    bitwise the plain version's planes, each plane its own allocation (the
+    allocator's alignment: K2 reads the planes' 128-byte rows whole), or
+    written into ``out``, planes this returned before for the same shapes."""
+    weights = list(weights)
+    if not weights or weights[0].device.type == "cpu":
+        return [pack_pconv_weight(w) for w in weights]
+    dev = weights[0].device
+    if dev.type != "cuda":
+        raise ValueError(f"pack_pconv_weights: no kernel for device {dev}")
+    for w in weights:
+        if w.dim() != 4 or w.device != dev or w.dtype != torch.float32 or not w.is_contiguous():
+            raise ValueError(
+                "pack_pconv_weights: weights must be contiguous 4-D float32 tensors on "
+                f"{dev}, got {tuple(w.shape)} {w.dtype} on {w.device}"
+            )
+    if out is None:
+        out = [tuple(torch.empty((co, k, k, ci), dtype=torch.float32, device=dev)
+                     for _ in range(2)) for co, ci, k, _ in (w.shape for w in weights)]
+    elif len(out) != len(weights):
+        raise ValueError(f"pack_pconv_weights: {len(out)} planes for {len(weights)} weights")
+    planes = out
+    lib = load_library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        for s in range(0, len(weights), MAX_PACK):
+            group = list(zip(weights, planes))[s : s + MAX_PACK]
+            n = len(group)
+            ptrs = lambda ts: (ctypes.c_void_p * n)(*(t.data_ptr() for t in ts))  # noqa: E731
+            ints = lambda vs: (ctypes.c_int * n)(*vs)  # noqa: E731
+            check(lib.tg_pack_tf32_planes(
+                ptrs(w for w, _ in group), ptrs(p[0] for _, p in group),
+                ptrs(p[1] for _, p in group), ints(w.shape[0] for w, _ in group),
+                ints(w.shape[1] for w, _ in group), ints(w.shape[2] for w, _ in group),
+                n, stream,
+            ), "pack_pconv_weights")
+            pack_pconv_weights.launches += 1
+    return planes
+
+
+pack_pconv_weights.launches = 0
 
 
 def fold_batch_norm(
@@ -254,7 +310,7 @@ def fused_pconv_eval(
             variants["simt"] += 1
         else:
             if packed is None:
-                packed = pack_pconv_weight(weight)
+                packed = pack_pconv_weights([weight])[0]
             w_hi, w_lo = packed
             _check_tensors(x.device, [(name, p, (cout, k, k, ca + cb))
                                       for name, p in (("w_hi", w_hi), ("w_lo", w_lo))])

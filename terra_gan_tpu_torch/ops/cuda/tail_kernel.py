@@ -13,8 +13,9 @@ with ``a, bb`` the eval BatchNorm folded per channel. ``k_skip=None``
 drops the ``x`` half of the concat: that is the model's own tail, whose
 dec1 convolves the upsampled features alone; the JAX function's form
 (with ``k_skip``) is kept for the tests that hold the two packages
-together. The kernel is ``csrc/decoder_tail.cu``: fp32, bound by FMA
-throughput; the source note there gives the design. The plain version
+together. The kernel is ``csrc/decoder_tail.cu``: dec1 as a 3xTF32
+implicit GEMM on the tensor cores (fp32 accuracy), bound by its
+operations; the source note there gives the design. The plain version
 is ``tail_reference``'s op sequence on the port's own ops (K1's and
 K2's plain versions, ``F.conv2d``), so on the CPU it gives the bits of
 the model's unfused tail, ``PConvUNet.tail_forward``.
@@ -38,7 +39,7 @@ from ._build import check, load_library
 from .pconv_kernel import fold_batch_norm
 from .upsample_kernel import upsample2x_fwd_plain
 
-MAX_CHANNELS = 64  # the kernel's thread block holds 18 rows x C/4 channel groups
+MAX_CHANNELS = 64  # the kernel's 8 n-tiles of 8 output channels
 
 
 def _check_geometry(d: torch.Tensor, x: torch.Tensor) -> None:

@@ -173,6 +173,30 @@ def test_what_is_not_ported_exits_2(tmp_path, monkeypatch, capsys, args, config)
     assert "not ported yet" in capsys.readouterr().err  # the CLI's own log handler
 
 
+@pytest.mark.parametrize("dtype", ["bf16", "bfloat16", "BFloat16"])
+def test_bf16_compute_dtype_exits_2_and_names_the_key(tmp_path, monkeypatch, capsys, dtype):
+    # the JAX CLI builds a bf16 model for these (main_pipeline.py:103-108)
+    monkeypatch.chdir(tmp_path)
+    Path("config.yaml").write_text(f"training:\n  compute_dtype: {dtype}\n")
+    assert main_pipeline.main(["--mode", "evaluate", "--config", "config.yaml",
+                               "--device", "cpu"]) == 2
+    err = capsys.readouterr().err
+    assert "training.compute_dtype" in err and "not ported yet" in err
+
+
+@pytest.mark.parametrize("dtype", ["float32", None])
+def test_fp32_compute_dtype_evaluates(evaluated, monkeypatch, dtype):
+    root, _ = evaluated
+    monkeypatch.chdir(root)
+    cfg = CONFIG.format(out=f"out_{dtype}", hw=HW)
+    if dtype is not None:
+        cfg += f"training:\n  compute_dtype: {dtype}\n"
+    (root / f"config_{dtype}.yaml").write_text(cfg)
+    assert main_pipeline.main(["--mode", "evaluate", "--config", f"config_{dtype}.yaml",
+                               "--grid", GRIDS[0], "--device", "cpu"]) == 0
+    assert len(list((root / f"out_{dtype}" / GRIDS[0] / "inpainted").glob("*.png"))) == TILES
+
+
 def test_tracking_is_not_ported_and_says_so(evaluated, monkeypatch, capsys):
     root, _ = evaluated
     monkeypatch.chdir(root)

@@ -20,6 +20,7 @@ from terra_gan_tpu_torch.ops.cuda.pconv_kernel import (
     fused_pconv_eval,
     fused_pconv_eval_plain,
     pack_pconv_weight,
+    pack_pconv_weights,
     plan_stage,
     sm_count,
 )
@@ -177,6 +178,53 @@ def test_model_packed_weights_follow_load_state_dict(card):
     after, want = dec2(model), dec2(model.forward_plain)
     assert not np.array_equal(after, before)
     assert nrmse(after, want) <= FEAT_NRMSE_TOL
+
+
+@pytest.mark.parametrize("edit", ["mul_", "copy_"])
+def test_kernel_path_follows_an_edit_through_data(card, edit):
+    # an in-place write through .data moves no version counter: planes cached
+    # on it went stale, and K2 ran the old weights while the plain path ran the new
+    model = init_generator(16, torch.Generator().manual_seed(9), card)
+    g = np.random.default_rng(10)
+    x = torch.from_numpy(g.random((2, 64, 64, 1), dtype=np.float32)).to(card)
+    m = torch.from_numpy((g.random((2, 64, 64, 1)) > 0.3).astype(np.float32)).to(card)
+
+    def dec2(run):
+        with torch.inference_mode():
+            return capture_dec2(model, lambda: run(x * m, m))[1]
+
+    before = dec2(model)
+    for name in ("enc4", "dec3"):
+        w = getattr(model, name).input_conv.weight
+        if edit == "mul_":
+            w.data.mul_(-2.0)
+        else:
+            w.data.copy_(torch.randn(w.shape, generator=torch.Generator().manual_seed(11)) * 0.05)
+    packs = pack_pconv_weights.launches
+    after, want = dec2(model), dec2(model.forward_plain)
+    assert pack_pconv_weights.launches == packs + 1  # all 14 stages in one launch
+    assert not np.array_equal(after, before)
+    assert nrmse(after, want) <= FEAT_NRMSE_TOL
+
+
+def test_pack_kernel_gives_the_plain_planes(card):
+    model = init_generator(16, torch.Generator().manual_seed(12), card)
+    weights = [p for n, p in model.named_parameters() if n.endswith("input_conv.weight")]
+    g = torch.Generator().manual_seed(13)
+    odd = torch.randn((5, 3, 2, 2), generator=g) * torch.exp(torch.randn((5, 3, 2, 2), generator=g) * 8)
+    odd[0, 0, 0, 0], odd[1, 1, 1, 1] = float("inf"), float("nan")
+    weights += [odd.to(card), torch.randn((4, 7, 1, 1), generator=g).to(card),
+                torch.randn((3, 1, 3, 3), generator=g).to(card)]  # 17 weights: two launches
+    before = pack_pconv_weights.launches
+    with torch.no_grad():
+        got = pack_pconv_weights(weights)
+    assert pack_pconv_weights.launches == before + 2
+    for w, (hi, lo) in zip(weights, got):
+        want_hi, want_lo = pack_pconv_weight(w)
+        assert hi.data_ptr() % 16 == 0 and lo.data_ptr() % 16 == 0
+        assert torch.equal(torch.isnan(hi), torch.isnan(want_hi))
+        assert torch.equal(hi.nan_to_num(), want_hi.nan_to_num())
+        assert torch.equal(lo, want_lo)
 
 
 def test_pconv_kernel_rejects_what_it_does_not_take(card):
@@ -350,23 +398,57 @@ def tail_args(seed, b, h, w, c, dev, skip=True, xm_mode="rand"):
 @pytest.mark.parametrize("b,h,w,c,skip,xm_mode", [
     (2, 16, 16, 8, True, "rand"),     # the JAX tests' size
     (2, 16, 16, 8, False, "zeros"),   # the model's one-input form
-    (1, 9, 13, 16, True, "rand"),     # ragged 16x16 output tiles
+    (1, 9, 13, 16, True, "rand"),     # ragged 14x14 output tiles
     (3, 8, 8, 4, False, "ones"),
+    (2, 11, 5, 4, True, "rand"),      # C = 4, half of one 8-channel chunk
+    (1, 10, 10, 12, False, "rand"),   # C = 12: the last chunk half empty
+    (1, 7, 7, 64, True, "zeros"),     # 2H = 14: exactly one output tile
     (1, 32, 24, 64, True, "rand"),    # the model's width
-    (1, 256, 256, 64, False, "rand"),  # the model's shape
+    (1, 256, 256, 64, False, "rand"),  # the model's shape: 512 is no multiple of 14
+    (1, 256, 256, 64, True, "zeros"),
 ])
 def test_tail_kernel_matches_plain(card, b, h, w, c, skip, xm_mode):
     args = tail_args(b + h + c, b, h, w, c, card, skip, xm_mode)
     before = fused_decoder_tail.launches
     got = fused_decoder_tail(*args)
+    again = fused_decoder_tail(*args)
     want = fused_decoder_tail_plain(*args)
     torch.cuda.synchronize()
-    assert fused_decoder_tail.launches == before + 1
+    assert fused_decoder_tail.launches == before + 2
     assert got.shape == want.shape == (b, 2 * h, 2 * w, 1)
+    assert torch.equal(got, again)  # no atomics: the same bits every call
     assert (got - want).abs().max().item() <= ATOL  # fp32 sums in another order
     assert nrmse(got.cpu(), want.cpu()) <= NRMSE_TOL
     if xm_mode == "ones":
         assert torch.equal(got, args[2])
+
+
+@pytest.mark.parametrize("skip", [False, True])
+def test_tail_kernel_propagates_a_nan_as_plain_does(card, skip):
+    args = tail_args(7, 1, 24, 24, 16, card, skip)
+    d, dm, x, xm = args[:4]
+    dm[:, 8:16, 8:16] = 0.0  # a hole of dec2's mask
+    xm[:, 16:32, 16:32] = 0.0  # and of the input's
+    d[0, 11, 12, 5] = float("nan")
+    got = fused_decoder_tail(*args)
+    want = fused_decoder_tail_plain(*args)
+    torch.cuda.synchronize()
+    nan = torch.isnan(want)
+    assert nan.any() and not nan.all()
+    assert torch.equal(torch.isnan(got), nan)
+    assert (got[~nan] - want[~nan]).abs().max().item() <= ATOL
+
+
+def test_tail_kernel_fits_two_blocks_an_sm(card):
+    import ctypes
+
+    from terra_gan_tpu_torch.ops.cuda._build import load_library
+
+    smem, blocks, threads, tile = (ctypes.c_int() for _ in range(4))
+    assert load_library().tg_decoder_tail_info(*(ctypes.byref(v) for v in (
+        smem, blocks, threads, tile))) == 0
+    assert threads.value == 256 and tile.value == 14
+    assert blocks.value >= 2, (blocks.value, smem.value)
 
 
 def test_tail_kernel_raises_on_what_it_does_not_take(card):

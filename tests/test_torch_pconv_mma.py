@@ -27,10 +27,12 @@ from terra_gan_tpu_torch.ops.cuda.pconv_kernel import (
     fused_pconv_eval,
     fused_pconv_eval_plain,
     pack_pconv_weight,
+    pack_pconv_weights,
     plan_stage,
     split_chunk_range,
     tf32_round,
 )
+from terra_gan_tpu_torch.models.generator import STAGES
 from terra_gan_tpu_torch.ops.cuda.upsample_kernel import upsample2x_fwd_plain
 from terra_gan_tpu_torch.ops.pconv import mask_window_sum
 from terra_gan_tpu_torch.utils.weights import init_generator
@@ -202,23 +204,60 @@ def test_plan_takes_simt_for_channels_the_copies_cannot_take():
     assert plan.variant == "mma" and plan.tile == 1 and plan.chunks == 9 * 2
 
 
+def planes_equal(a, b) -> bool:
+    return all(torch.equal(p, q) for p, q in zip(a, b))
+
+
 def test_model_repacks_its_cached_planes_when_the_weight_changes():
+    # nothing is cached any more: every call packs the weight as it is now
     model = init_generator(8, torch.Generator().manual_seed(0), "cpu")
     st = model.enc3
     first = st.packed_weight()
-    assert st.packed_weight() is first  # cached while the weight stands
+    assert planes_equal(first, pack_pconv_weight(st.input_conv.weight))
     sd = model.state_dict()
     sd["enc3.input_conv.weight"] = sd["enc3.input_conv.weight"] * 1.5
     model.load_state_dict(sd)
     second = st.packed_weight()
-    assert second is not first
-    assert torch.equal(second[0], pack_pconv_weight(st.input_conv.weight)[0])
+    assert not torch.equal(second[0], first[0])
+    assert planes_equal(second, pack_pconv_weight(st.input_conv.weight))
     opt = torch.optim.SGD(model.parameters(), lr=0.1)
     st.input_conv.weight.grad = torch.ones_like(st.input_conv.weight)
     opt.step()
     third = st.packed_weight()
-    assert third is not second
-    assert torch.equal(third[1], pack_pconv_weight(st.input_conv.weight)[1])
+    assert not torch.equal(third[0], second[0])
+    assert planes_equal(third, pack_pconv_weight(st.input_conv.weight))
+
+
+@pytest.mark.parametrize("edit", ["mul_", "copy_"])
+def test_planes_follow_an_in_place_write_through_data(edit):
+    # a write through .data moves no version counter: a cache keyed on it went stale
+    model = init_generator(8, torch.Generator().manual_seed(1), "cpu")
+    w = model.dec3.input_conv.weight
+    before, version = model.dec3.packed_weight(), w._version
+    if edit == "mul_":
+        w.data.mul_(-2.0)
+    else:
+        w.data.copy_(torch.randn(w.shape, generator=torch.Generator().manual_seed(2)))
+    assert w._version == version  # the hole: nothing a cache could key on moved
+    after = model.dec3.packed_weight()
+    assert not torch.equal(after[0], before[0])
+    assert planes_equal(after, pack_pconv_weight(w))
+
+
+def test_model_packs_every_stage_in_one_call():
+    model = init_generator(8, torch.Generator().manual_seed(3), "cpu")
+    assert model.packed_weights() is None  # K2's plain version on the CPU reads no planes
+    weights = [getattr(model, n).input_conv.weight for n in STAGES]
+    assert len(weights) == 14
+    planes = pack_pconv_weights(weights)
+    assert len(planes) == 14
+    for w, p in zip(weights, planes):
+        assert planes_equal(p, pack_pconv_weight(w))
+    launches = pack_pconv_weights.launches
+    x, m = torch.rand((1, 32, 32, 1)), torch.ones((1, 32, 32, 1))
+    with torch.inference_mode():
+        model(x, m)
+    assert pack_pconv_weights.launches == launches  # no kernel on the CPU
 
 
 def test_cpu_wrapper_ignores_packed_planes():
