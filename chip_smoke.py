@@ -9,7 +9,8 @@ Phases, one line of figures each (any failure raises and exits nonzero):
      and the tensor-core instructions (HMMA, HGMMA) in its SASS
      (cuobjdump -sass); K2's and K3's MMA kernels must have some, and no
      K2 or K3 kernel may spill; K3's dynamic shared memory and the blocks
-     an SM holds;
+     an SM holds; P2's and P4's 14 kernels (6 lane counts x 2 variants,
+     2 variants) must not spill either;
   3. K2 fused_pconv_eval against its plain version at the 14 stage
      geometries of the full-width (base_width=64) 512^2 PConvUNet, batch 2,
      with the stage's weight planes packed once: per stage its variant
@@ -62,10 +63,17 @@ Phases, one line of figures each (any failure raises and exits nonzero):
      unfused tail, and 1 K3, 13 K2 and 6 K1 launches a forward;
  12. probes: the five probe kernels P1-P5 (csrc/probes.cu) against their
      plain versions at scripts/probe_mosaic.py's shapes and seed (P4 and
-     P5 equal, P1-P3 within 1e-6 of max|plain|) and against numpy as
-     cli/probe_cuda.py prints it; their times beside an empty launch's
-     and the library call's, per call (CUDA events) and on the device
-     (torch.profiler);
+     P5 equal, P1-P3 within 1e-6 of max|plain|), P2 and P4 in each of
+     their two variants (vec4 and scalar, forced through plan_probe) and
+     as planned on a view at a 4-byte offset (scalar), and against numpy
+     as cli/probe_cuda.py prints it. Times: each kernel, its plain
+     version, its library call and an empty launch on the device by
+     graph replay (graph_device_ms: 1000 calls captured in one CUDA
+     graph, which must hold one kernel node a probe call, the median of
+     5 timed replays over 1000), beside the per-call CUDA-event time
+     (the host's launch) and torch.profiler's device time, which reads
+     "unresolved" where the profiler recorded fewer device events than
+     launches;
  13. doctor: ``doctor.main([])`` exits 0 with backend, kernel-build,
      model and probes PASS and all five probes OK;
  14. cli: the pipeline CLI's evaluate mode in-process (config read by
@@ -78,7 +86,9 @@ Then a JSON line of per-kernel figures (each with its bound: the larger
 of its bytes over 3.35 TB/s and its operations over the peak of the
 unit it runs on, from this run's shapes: the 67 TFLOP/s of fp32 outside
 the tensor cores, or for K2's MMA stages and K3's dec1 495 TFLOP/s of
-dense TF32 over the 3 TF32 products of each fp32 product), and last
+dense TF32 over the 3 TF32 products of each fp32 product; a probe's ms,
+plain_ms and library_ms are device times a launch by graph replay, and
+K2's, P2's and P4's launches are also given by variant), and last
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Without CUDA it exits nonzero before printing any result.
 """
@@ -113,7 +123,13 @@ from terra_gan_tpu_torch.data.visualization import build_lut
 from terra_gan_tpu_torch.evaluation.inference import OUTPUT_SIZE, evaluate, inpaint_directory
 from terra_gan_tpu_torch.models.generator import STAGES
 from terra_gan_tpu_torch.ops.cuda._build import build_info, check, find_nvcc, load_library
-from terra_gan_tpu_torch.ops.cuda.probe_kernels import PLAIN, PROBES, empty_launch
+from terra_gan_tpu_torch.ops.cuda.probe_kernels import (
+    PLAIN,
+    PROBES,
+    VARIANTS,
+    empty_launch,
+    plan_probe,
+)
 from terra_gan_tpu_torch.ops.cuda.pconv_kernel import (
     MMA_TILES,
     fold_batch_norm,
@@ -180,6 +196,8 @@ K1_B8_BATCH = 8
 # P1-P3 against their plain versions, of max|plain|: fp32 sums in another
 # order (sums of 64 and 128 products); P4 and P5 round as torch does: equal
 PROBE_SUM_REL_TOL = 1e-6
+# device time per launch by graph replay: calls captured in one graph, timed replays
+GRAPH_LAUNCHES, GRAPH_REPLAYS = 1000, 5
 CLI_GRIDS, CLI_TILES = ("NJ05", "SU12"), 8
 # scripts/probe_mosaic.py's lines of the probes the kernels replace
 PROBE_REPLACES = {"probe_lane_reduce": 45, "probe_matvec_dot": 66, "probe_lane_concat_dot": 91,
@@ -376,6 +394,11 @@ def phase_build():
     require(len(k3) == 1 and all(r.get("hmma", 0) > 0 for r in k3.values()),
             f"build: K3 shows no tensor-core instructions: {k3}")
     require(all(r.get("spill_bytes") == 0 for r in k3.values()), f"build: K3 spills: {k3}")
+    # P2's 6 lane counts and P4, each in two variants
+    p2p4 = {fn: r for fn, r in report.items()
+            if "matvec_dot_kernel" in fn or "mask_broadcast_kernel" in fn}
+    require(len(p2p4) == 14 and all(r.get("spill_bytes") == 0 for r in p2p4.values()),
+            f"build: P2's and P4's kernels are not 14 without spills: {p2p4}")
 
 
 def stage_inputs(st, h: int, ca: int, cb: int, batch: int, gen, dev):
@@ -595,10 +618,11 @@ def phase_pack(model):
     t_host = host_ms(lambda: pack_pconv_weights(weights))
     n = sum(w.numel() for w in weights)
     # per element a subtraction beside two roundings; it moves its bytes
-    fig = dict(max_abs_err=err, ms=t_k, plain_ms=t_p, library_ms=None, device_ms=t_dev,
-               host_ms=t_host, **bound(float(n), 12 * n))
+    fig = dict(max_abs_err=err, ms=t_k, plain_ms=t_p, library_ms=None,
+               device_ms="unresolved" if t_dev is None else t_dev, host_ms=t_host,
+               **bound(float(n), 12 * n))
     line("pack", stages=len(weights), weights=n, bitwise=equal, ms=f"{t_k:.4f}",
-         device_ms=f"{t_dev:.4f}", host_ms=f"{t_host:.4f}", plain_ms=f"{t_p:.4f}",
+         device_ms=ms_text(t_dev, 4), host_ms=f"{t_host:.4f}", plain_ms=f"{t_p:.4f}",
          bound_ms=f"{fig['bound_ms']:.4f}", bound_by=fig["bound_by"])
     require(equal, f"pack: the kernel's planes differ from the plain packing ({err})")
     return fig
@@ -1148,10 +1172,11 @@ def probe_work(name: str, args, out) -> dict:
     return bound(flop, nbytes(*args, out))
 
 
-def device_ms(fn, calls: int = 20) -> float:
+def device_ms(fn, calls: int = 20):
     """Device time a call of fn takes on the card, from torch.profiler's device
-    events (information only: at 256 KiB a per-call CUDA-event time is the
-    host's launch cost, since the card idles between calls)."""
+    events, or None where it recorded fewer events than fn's launches (every
+    call timed here launches at least one kernel; the profiler can drop a
+    launch-sized kernel's events)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1161,52 +1186,151 @@ def device_ms(fn, calls: int = 20) -> float:
             fn()
         torch.cuda.synchronize()
     events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if len(events) < calls:
+        return None
     return sum(e.time_range.elapsed_us() for e in events) / calls / 1e3
 
 
+def ms_text(ms, digits: int = 5) -> str:
+    """A device time as printed: 'unresolved' where it was not measured."""
+    return "unresolved" if ms is None else f"{ms:.{digits}f}"
+
+
+def graph_kernel_nodes(graph) -> int:
+    """The kernel nodes of a captured, kept CUDA graph (libcuda's
+    cuGraphGetNodes and cuGraphNodeGetType): the launches it recorded."""
+    cuda = ctypes.CDLL("libcuda.so.1")
+    cuda.cuGraphGetNodes.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                     ctypes.POINTER(ctypes.c_size_t)]
+    cuda.cuGraphNodeGetType.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
+    raw, n = ctypes.c_void_p(graph.raw_cuda_graph()), ctypes.c_size_t(0)
+    require(cuda.cuGraphGetNodes(raw, None, ctypes.byref(n)) == 0, "cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * n.value)()
+    require(cuda.cuGraphGetNodes(raw, nodes, ctypes.byref(n)) == 0, "cuGraphGetNodes failed")
+    kind, kernels = ctypes.c_int(), 0
+    for node in nodes:
+        require(cuda.cuGraphNodeGetType(node, ctypes.byref(kind)) == 0, "cuGraphNodeGetType failed")
+        kernels += kind.value == 0  # CU_GRAPH_NODE_TYPE_KERNEL
+    return kernels
+
+
+def graph_device_ms(fn, launches: int = GRAPH_LAUNCHES, replays: int = GRAPH_REPLAYS):
+    """(device ms a call, kernel launches a call) of fn, every launch recorded:
+    fn warmed up on a side stream, ``launches`` calls captured in one CUDA
+    graph (the wrappers launch on the current stream, the capture stream),
+    the graph replayed once to warm it, then the median of ``replays``
+    replays timed with CUDA events, over ``launches``."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        for _ in range(launches):
+            fn()
+    kernels = graph_kernel_nodes(graph) / launches
+    graph.instantiate()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(replays):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    graph.reset()
+    return statistics.median(times) / launches, kernels
+
+
+def probe_check(name: str, got, want, label: str = "") -> float:
+    """Probe ``name``'s result against its plain version: P4 and P5 equal,
+    P1-P3 within PROBE_SUM_REL_TOL of max|plain|; the max abs error."""
+    torch.cuda.synchronize()
+    what = f"probes {name}{label}"
+    require(got.shape == want.shape, f"{what}: shape {tuple(got.shape)}")
+    err = (got - want).abs().max().item()
+    if name in ("probe_mask_broadcast", "probe_row_build"):
+        require(torch.equal(got, want), f"{what}: not equal to its plain version ({err})")
+    else:
+        scale = want.abs().max().item()
+        require(err <= PROBE_SUM_REL_TOL * scale,
+                f"{what}: err {err} > {PROBE_SUM_REL_TOL} * {scale}")
+    return err
+
+
+def timed_on_device(what: str, fn, kernels=None) -> float:
+    """graph_device_ms of fn; where ``kernels`` is given, the graph must hold
+    exactly that many kernel launches a call."""
+    ms, per_call = graph_device_ms(fn)
+    require(kernels is None or per_call == kernels,
+            f"probes: the graph of {what} holds {per_call} kernels a call, not {kernels}")
+    return ms
+
+
 def phase_probes(dev):
-    """P1-P5 against their plain versions at probe_mosaic's shapes and seed,
-    then against numpy as probe_cuda prints it; times beside an empty launch."""
+    """P1-P5 against their plain versions at probe_mosaic's shapes and seed
+    (P2 and P4 in each variant), then against numpy as probe_cuda prints
+    it; device times per launch by graph replay beside an empty launch's
+    and the library call's."""
     libraries = {"probe_lane_reduce": torch.matmul, "probe_matvec_dot": torch.matmul,
                  "probe_mask_broadcast": lambda a, m: a * m[..., None]}
-    empty_ms = time_ms(lambda: empty_launch(dev))
-    empty_device_ms = device_ms(lambda: empty_launch(dev))
+    empty = timed_on_device("the empty launch", lambda: empty_launch(dev), kernels=1)
+    empty_call = time_ms(lambda: empty_launch(dev))
+    empty_prof = device_ms(lambda: empty_launch(dev))
     figures = {}
     for _, fn, np_args, _, _ in probe_cases(*probe_inputs()):
         name = fn.__name__
         args = [torch.from_numpy(x).to(dev) for x in np_args]
         got, want = fn(*args), PLAIN[fn](*args)
-        torch.cuda.synchronize()
-        err = (got - want).abs().max().item()
-        scale = want.abs().max().item()
-        exact = name in ("probe_mask_broadcast", "probe_row_build")
-        t_k = time_ms(lambda: fn(*args))
-        t_p = time_ms(lambda: PLAIN[fn](*args))
-        t_l = time_ms(lambda: libraries[name](*args)) if name in libraries else None
-        t_dev = device_ms(lambda: fn(*args))
-        t_ldev = device_ms(lambda: libraries[name](*args)) if name in libraries else None
+        err = probe_check(name, got, want)
+        library = libraries.get(name)
+        t_k = timed_on_device(name, lambda: fn(*args), kernels=1)
+        t_p = timed_on_device(f"{name}'s plain version", lambda: PLAIN[fn](*args))
+        t_l = timed_on_device(f"{name}'s library call", lambda: library(*args)) if library else None
+        t_call = time_ms(lambda: fn(*args))
+        t_prof = device_ms(lambda: fn(*args))
+        t_lprof = device_ms(lambda: library(*args)) if library else None
         fig = dict(max_abs_err=err, ms=t_k, plain_ms=t_p, **probe_work(name, args, got),
-                   library_ms=t_l, device_ms=t_dev, library_device_ms=t_ldev)
+                   library_ms=t_l, empty_ms=empty, call_ms=t_call,
+                   device_ms="unresolved" if t_prof is None else t_prof,
+                   library_device_ms="unresolved" if t_lprof is None else t_lprof)
+        variants = {}
+        if hasattr(fn, "variants"):
+            for v in VARIANTS:  # forced through the planner at the script's shapes
+                ev = probe_check(name, fn(*args, variant=v), want, f" {v}")
+                variants[v] = dict(max_abs_err=ev, ms=timed_on_device(
+                    f"{name} {v}", lambda: fn(*args, variant=v), kernels=1))
+            # as planned on a view at a 4-byte offset: the scalar variant
+            buf = torch.empty(args[0].numel() + 1, device=dev)
+            view = buf[1:].view(args[0].shape).copy_(args[0])
+            require(plan_probe(name, view, *args[1:])[0] == "scalar",
+                    f"probes {name}: a view at a 4-byte offset is not planned scalar")
+            probe_check(name, fn(view, *args[1:]), PLAIN[fn](view, *args[1:]), " offset view")
+            fig["variant_ms"] = {v: f["ms"] for v, f in variants.items()}
+            fig["variant_max_abs_err"] = {v: f["max_abs_err"] for v, f in variants.items()}
         line("probes", probe=name, args="+".join("x".join(map(str, a.shape)) for a in args),
              out="x".join(map(str, got.shape)), max_abs_err=f"{err:.3e}",
-             rel=f"{err / max(scale, 1e-30):.3e}", ms=f"{t_k:.4f}", plain_ms=f"{t_p:.4f}",
-             library_ms="none" if t_l is None else f"{t_l:.4f}", empty_launch_ms=f"{empty_ms:.4f}",
-             device_ms=f"{t_dev:.5f}",
-             library_device_ms="none" if t_ldev is None else f"{t_ldev:.5f}",
-             empty_device_ms=f"{empty_device_ms:.5f}",
+             rel=f"{err / max(want.abs().max().item(), 1e-30):.3e}",
+             device_ms=f"{t_k:.5f}", plain_device_ms=f"{t_p:.5f}",
+             library_device_ms="none" if t_l is None else f"{t_l:.5f}",
+             empty_device_ms=f"{empty:.5f}", call_ms=f"{t_call:.4f}",
+             profiler_ms=ms_text(t_prof),
+             library_profiler_ms="none" if library is None else ms_text(t_lprof),
+             **{f"{v}_device_ms": f"{f['ms']:.5f}" for v, f in variants.items()},
              bound_ms=f"{fig['bound_ms']:.6f}", bound_by=fig["bound_by"])
-        require(got.shape == want.shape, f"probes {name}: shape {tuple(got.shape)}")
-        if exact:
-            require(torch.equal(got, want), f"probes {name}: not equal to its plain version ({err})")
-        else:
-            require(err <= PROBE_SUM_REL_TOL * scale,
-                    f"probes {name}: err {err} > {PROBE_SUM_REL_TOL} * {scale}")
         figures[name] = fig
     results = run_probes(dev)
     for r in results:
         print("  probe_cuda:", r.line(), flush=True)
     require(all(r.ok for r in results), "probes: a probe failed against numpy")
-    line("probes", empty_launch_ms=f"{empty_ms:.4f}", empty_device_ms=f"{empty_device_ms:.5f}")
+    line("probes", empty_device_ms=f"{empty:.5f}", empty_call_ms=f"{empty_call:.4f}",
+         empty_profiler_ms=ms_text(empty_prof), graph_launches=GRAPH_LAUNCHES,
+         graph_replays=GRAPH_REPLAYS)
     return figures
 
 
@@ -1355,8 +1479,11 @@ def main() -> None:
          "peak": PEAKS[peaks.get(name, "fp32")]}
         for name, (src, replaces) in sources.items()
     ]
-    kernels[0]["variants"] = {v: launches[f"fused_pconv_eval.{v}"]
-                              for v in fused_pconv_eval.variants}
+    wrappers = {fn.__name__: fn for fn in counters + PROBES}
+    for k in kernels:  # K2's, P2's and P4's launches by variant
+        wrapper = wrappers[k["name"]]
+        if hasattr(wrapper, "variants"):
+            k["variants"] = {v: launches[f"{k['name']}.{v}"] for v in wrapper.variants}
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)

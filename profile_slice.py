@@ -52,16 +52,30 @@ the card) measures
  10. K1 backward at the 7 decoder shapes at batch 8, kernel and plain ms
      and the achieved bytes/s.
 
+The probes leg times P2 and P4 (csrc/probes.cu) at scripts/probe_mosaic.py's
+shapes, as chip_smoke.py's probes phase does (graph_device_ms: 1000
+calls in one CUDA graph, the median of 5 timed replays over 1000):
+
+ 11. each variant of each (vec4, scalar), the library call for the same
+     function (torch.matmul, a * m[..., None]) and an empty launch, and
+     with --parent DIR (a checkout of the parent commit, e.g. unpacked
+     by git archive into build/parent/) the parent's two kernels, built
+     alone from DIR's csrc/probes.cu and called through its own C
+     signatures, in turns parent, change, change, parent; every version
+     held against the plain version (P4 equal, P2 within 1e-6 of max).
+
 It prints one line per figure and writes all of them as JSON to --out
 (and the traces beside it); --legs picks some of the legs (inference,
-stage, tail, serve, train; all by default). Without CUDA it exits
-nonzero.
+stage, tail, serve, train, probes; all by default). Without CUDA it
+exits nonzero.
 """
 
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
+import subprocess
 import threading
 import time
 from collections import defaultdict
@@ -74,9 +88,15 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from chip_smoke import (
-    SEED, SIZE, WIDTH, bound, dec2_outputs, device_batch, device_ms, dsm_tiles, host_ms,
-    k2_stage, k3_bound, k3_work, line, phase_build, phase_env, stage_geometries, stage_inputs,
-    sum_bounds, time_ms, train_state, unfused_forward, upsample_shapes,
+    SEED, SIZE, WIDTH, bound, dec2_outputs, device_batch, device_ms, dsm_tiles, graph_device_ms,
+    host_ms, k2_stage, k3_bound, k3_work, line, ms_text, phase_build, phase_env, probe_check,
+    stage_geometries, stage_inputs, sum_bounds, time_ms, train_state, unfused_forward,
+    upsample_shapes,
+)
+from terra_gan_tpu_torch.cli.probe_cuda import probe_inputs
+from terra_gan_tpu_torch.ops.cuda._build import BUILD_ROOT, NVCC_FLAGS, check, find_nvcc
+from terra_gan_tpu_torch.ops.cuda.probe_kernels import (
+    PLAIN, VARIANTS, empty_launch, probe_mask_broadcast, probe_matvec_dot,
 )
 from terra_gan_tpu_torch.evaluation.inference import OUTPUT_SIZE
 from terra_gan_tpu_torch.models.generator import STAGES
@@ -105,7 +125,7 @@ CHUNKS = (8, 16, 32)
 E2E_TILES = 32
 STAGE_BATCHES = (1, 8)
 K1_BWD_BATCH = 8
-LEGS = ("inference", "stage", "tail", "serve", "train")
+LEGS = ("inference", "stage", "tail", "serve", "train", "probes")
 TRAIN_BATCHES = (8, 16, 32)
 TRAIN_STEPS = 5
 TRACE_STEPS = 3
@@ -130,7 +150,7 @@ def forward_rates(model, dev, imgs, masks):
         pack_host, pack_dev = host_ms(model.packed_weights), device_ms(model.packed_weights)
     n = sum(getattr(model, s).input_conv.weight.numel() for s in STAGES)
     line("forward", pack_ms=f"{pack:.4f}", pack_host_ms=f"{pack_host:.4f}",
-         pack_device_ms=f"{pack_dev:.4f}", weights=n, **bound(float(n), 12.0 * n))
+         pack_device_ms=ms_text(pack_dev, 4), weights=n, **bound(float(n), 12.0 * n))
     rows.append(dict(pack_ms=pack, pack_host_ms=pack_host, pack_device_ms=pack_dev, weights=n))
     return rows
 
@@ -430,11 +450,71 @@ def k1_bwd_rates(dev):
     return rows + [total("k1_bwd", "g", rows)]
 
 
+def parent_probes(root: Path):
+    """P2 and P4 of a parent checkout at ``root``: its csrc/probes.cu built
+    alone with the port's nvcc flags into build/parent_probes/, each bound
+    with the parent's C signature (a, k or m, out, n, c, stream)."""
+    src = root / "terra_gan_tpu_torch" / "csrc" / "probes.cu"
+    so = BUILD_ROOT.parent / "parent_probes" / "libparent_probes.so"
+    so.parent.mkdir(parents=True, exist_ok=True)
+    subprocess.run([find_nvcc(), *NVCC_FLAGS, "-shared", "-o", str(so), str(src)], check=True,
+                   capture_output=True, text=True, timeout=600)
+    lib = ctypes.CDLL(str(so))
+
+    def bind(entry, shape):
+        fn = getattr(lib, entry)
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+
+        def call(a, other):
+            out = torch.empty(shape(a), device=a.device)
+            c = a.shape[-1]
+            check(fn(a.data_ptr(), other.data_ptr(), out.data_ptr(), a.numel() // c, c,
+                     torch.cuda.current_stream().cuda_stream), entry)
+            return out
+        return call
+
+    return {"probe_matvec_dot": bind("tg_probe_matvec_dot", lambda a: a.shape[:-1]),
+            "probe_mask_broadcast": bind("tg_probe_mask_broadcast", lambda a: a.shape)}
+
+
+def probe_rates(dev, parent_root):
+    """P2 and P4 at the script's shapes: each variant, the library call and an
+    empty launch, and the parent's kernels in turns, by graph replay."""
+    a, k1, _, m = (torch.from_numpy(x).to(dev) for x in probe_inputs())
+    cases = {"probe_matvec_dot": (probe_matvec_dot, (a, k1[:, None]), torch.matmul),
+             "probe_mask_broadcast": (probe_mask_broadcast, (a, m),
+                                      lambda a, m: a * m[..., None])}
+    parent = parent_probes(parent_root) if parent_root else None
+    turns = ("parent", "change", "change", "parent") if parent else ("change", "change")
+    rows = []
+    for run, turn in enumerate(turns):
+        empty = graph_device_ms(lambda: empty_launch(dev))[0]
+        for name, (wrapper, args, library) in cases.items():
+            if turn == "parent":
+                versions = {"parent": lambda: parent[name](*args)}
+            else:
+                versions = {v: (lambda v=v: wrapper(*args, variant=v)) for v in VARIANTS}
+            lib_ms = graph_device_ms(lambda: library(*args))[0]
+            for version, fn in versions.items():
+                err = probe_check(name, fn(), PLAIN[wrapper](*args), f" {version}")
+                ms, kernels = graph_device_ms(fn)
+                row = dict(run=run, turn=turn, probe=name, version=version, device_ms=ms,
+                           kernels_per_call=kernels, library_device_ms=lib_ms,
+                           empty_device_ms=empty, max_abs_err=err)
+                line("probes", **{k: f"{v:.6f}" if isinstance(v, float) else v
+                                  for k, v in row.items()})
+                rows.append(row)
+    return rows
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", type=Path, default=Path("chiprun_out/profile_slice.json"))
     ap.add_argument("--legs", default=",".join(LEGS),
                     help=f"comma-separated legs to run, of {','.join(LEGS)}")
+    ap.add_argument("--parent", type=Path, default=None,
+                    help="probes leg: a parent checkout whose P2 and P4 run in turns")
     args = ap.parse_args()
     legs = set(args.legs.split(","))
     if not legs <= set(LEGS):
@@ -465,6 +545,8 @@ def main() -> None:
             train_trace=train_trace(dev, imgs, masks, args.out),
             k1_bwd=k1_bwd_rates(dev),
         )
+    if "probes" in legs:
+        result["probes"] = probe_rates(dev, args.parent)
     args.out.write_text(json.dumps(result, indent=1))
     print(json.dumps({"written": str(args.out)}), flush=True)
 

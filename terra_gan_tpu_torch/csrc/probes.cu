@@ -12,24 +12,39 @@
 //
 //   P1  out[p]    = sum_c a[p, c] * k[c]                      one warp per p,
 //                                                           __shfl_xor_sync tree
-//   P2  out[p]    = sum_c a[p, c] * k[c, 0]                   one thread per p,
-//                                                           k in shared memory,
-//                                                           sequential FMAs
+//   P2  out[p]    = sum_c a[p, c] * k[c, 0]                   L lanes per p (below)
 //   P3  out[p, n] = sum_j [a, 2a][p, j] * k2[j, n], j < 2C    tiled SIMT product,
 //                                                           [a, 2a] built in
 //                                                           shared memory
-//   P4  out[p, c] = a[p, c] * m[p]                           one thread per element
+//   P4  out[p, c] = a[p, c] * m[p]                           one float4 a thread
+//                                                           (below)
 //   P5  out[r]    = .25 * a[r] + .75 * a[r + 1], r < R - 1;   one thread per element
 //       out[R-1]  = a[R-1]
 //
 // where p runs over the leading dimensions flattened. Bound on the H100: at
 // the probes' own shapes (a = 16x64x64 fp32, 256 KiB) every one moves under
-// 600 KB and does under 2.2 MFLOP, a bound under 0.2 us, far below the few
-// microseconds a launch takes: they are launch-bound, and the smoke times an
-// empty launch beside them. P4 and P5 round each product and sum once, as
-// torch does (P5 spells them __fmul_rn/__fadd_rn so that nvcc cannot
-// contract them into an FMA), so they give torch's bits; P1-P3 sum in
-// another order than torch and are held to 1e-6 of the largest output.
+// 600 KB and does under 2.2 MFLOP, a bound under 0.2 us, far below the
+// launch itself (an empty kernel takes longer): they are launch-bound, and
+// their yardstick is the library call for the same function, timed the same
+// way. P4 and P5 round each product and sum once, as torch does (spelled
+// __fmul_rn/__fadd_rn so that nvcc cannot contract them into an FMA), so
+// they give torch's bits; P1-P3 sum in another order than torch and are
+// held to 1e-6 of the largest output.
+//
+// P2 and P4 each come in two variants, picked by the wrapper's planner
+// (ops/cuda/probe_kernels.py :: plan_probe) and passed in by number:
+// vec4 (C % 4 == 0 and 16-byte aligned rows) moves 16 bytes a load, scalar
+// takes any C and any 4-byte alignment with the same thread mapping. Both
+// use blocks of 128 threads, 32-bit indices and a grid-stride loop, so any
+// grid covers every row.
+//   P2: a row takes a group of L lanes, L the least power of two <= 32 with
+//   4L >= C (C = 64: L = 16, a float4 a lane, two rows a warp, 1024 rows
+//   over 128 blocks). Each lane reads its float4s of the row and of k with
+//   __ldg and sums them with fmaf in order; the group then adds its partial
+//   sums by an xor-shuffle tree of log2(L) steps. No shared memory, no
+//   barrier; a row's loads are one contiguous 256-byte span.
+//   P4: a thread takes a float4 of a, which lies in one row, so a row index
+//   costs one 32-bit division a float4; m[p] is read once with __ldg.
 
 #include <cuda_runtime.h>
 
@@ -50,17 +65,52 @@ __global__ void lane_reduce_kernel(const float* __restrict__ a, const float* __r
   if (lane == 0) out[warp] = s;
 }
 
-__global__ void matvec_dot_kernel(const float* __restrict__ a, const float* __restrict__ k,
-                                  float* __restrict__ out, int n, int c) {
-  extern __shared__ float ks[];
-  for (int j = threadIdx.x; j < c; j += blockDim.x) ks[j] = k[j];
-  __syncthreads();
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= n) return;
-  const float* row = a + (size_t)p * c;
-  float s = 0.0f;
-  for (int j = 0; j < c; ++j) s = fmaf(row[j], ks[j], s);
-  out[p] = s;
+// P2 and P4's blocks; their variants as the wrapper numbers them
+constexpr int kProbeThreads = 128;
+constexpr int kScalar = 0, kVec4 = 1;
+
+// The lanes a P2 row takes: the least power of two L <= 32 with 4L >= c.
+int matvec_lanes(int c) {
+  int lanes = 1;
+  while (lanes < 32 && 4 * lanes < c) lanes <<= 1;
+  return lanes;
+}
+
+template <int L, bool VEC4>
+__global__ void __launch_bounds__(kProbeThreads)
+    matvec_dot_kernel(const float* __restrict__ a, const float* __restrict__ k,
+                      float* __restrict__ out, unsigned n, unsigned c) {
+  constexpr unsigned kRowsPerWarp = 32 / L;
+  const unsigned lane = threadIdx.x & (L - 1);
+  const unsigned group = (threadIdx.x & 31) / L;
+  const unsigned warp = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const unsigned stride = ((gridDim.x * blockDim.x) >> 5) * kRowsPerWarp;
+  // r0 is the warp's first row, the same for all its lanes, so every lane
+  // reaches each shuffle; a group past the last row adds zeros
+  for (unsigned r0 = warp * kRowsPerWarp; r0 < n; r0 += stride) {
+    const unsigned p = r0 + group;
+    float s = 0.0f;
+    if (p < n) {
+      if (VEC4) {
+        const unsigned c4 = c >> 2;
+        const float4* row = reinterpret_cast<const float4*>(a) + p * c4;
+        const float4* k4 = reinterpret_cast<const float4*>(k);
+        for (unsigned j = lane; j < c4; j += L) {
+          const float4 x = __ldg(row + j), w = __ldg(k4 + j);
+          s = fmaf(x.x, w.x, s);
+          s = fmaf(x.y, w.y, s);
+          s = fmaf(x.z, w.z, s);
+          s = fmaf(x.w, w.w, s);
+        }
+      } else {
+        const float* row = a + p * c;
+        for (unsigned j = lane; j < c; j += L) s = fmaf(__ldg(row + j), __ldg(k + j), s);
+      }
+    }
+#pragma unroll
+    for (int off = L / 2; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off, L);
+    if (p < n && lane == 0) out[p] = s;
+  }
 }
 
 // Output tile BM x BN per block of (BN, BM / ROWS) threads; each thread
@@ -107,12 +157,26 @@ __global__ void lane_concat_dot_kernel(const float* __restrict__ a, const float*
   }
 }
 
-__global__ void mask_broadcast_kernel(const float* __restrict__ a, const float* __restrict__ mk,
-                                      float* __restrict__ out, int n, int c) {
-  const size_t total = (size_t)n * c;
-  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < total;
-       i += (size_t)gridDim.x * blockDim.x) {
-    out[i] = __fmul_rn(a[i], mk[i / c]);
+template <bool VEC4>
+__global__ void __launch_bounds__(kProbeThreads)
+    mask_broadcast_kernel(const float* __restrict__ a, const float* __restrict__ mk,
+                          float* __restrict__ out, unsigned n, unsigned c) {
+  const unsigned stride = gridDim.x * blockDim.x;
+  if (VEC4) {
+    const unsigned c4 = c >> 2, total = n * c4;
+    const float4* a4 = reinterpret_cast<const float4*>(a);
+    float4* out4 = reinterpret_cast<float4*>(out);
+    for (unsigned i = blockIdx.x * blockDim.x + threadIdx.x; i < total; i += stride) {
+      const float m = __ldg(mk + i / c4);
+      const float4 x = __ldg(a4 + i);
+      out4[i] = make_float4(__fmul_rn(x.x, m), __fmul_rn(x.y, m), __fmul_rn(x.z, m),
+                            __fmul_rn(x.w, m));
+    }
+  } else {
+    const unsigned total = n * c;
+    for (unsigned i = blockIdx.x * blockDim.x + threadIdx.x; i < total; i += stride) {
+      out[i] = __fmul_rn(__ldg(a + i), __ldg(mk + i / c));
+    }
   }
 }
 
@@ -134,6 +198,25 @@ int blocks_for(size_t threads_needed) {
   return (int)(want < 132 * 32 ? (want ? want : 1) : 132 * 32);
 }
 
+bool aligned16(const void* p) { return (reinterpret_cast<size_t>(p) & 15) == 0; }
+
+// Whether P2's or P4's wrapper planned a launch the kernel takes: blocks of
+// kProbeThreads, and vec4 only for C % 4 == 0 and 16-byte aligned pointers.
+bool probe_plan_ok(int variant, int c, int grid, int block, const void* p0, const void* p1) {
+  if (grid < 1 || block != kProbeThreads) return false;
+  if (variant == kScalar) return true;
+  return variant == kVec4 && c % 4 == 0 && aligned16(p0) && aligned16(p1);
+}
+
+template <int L>
+void launch_matvec_dot(int variant, int grid, int block, cudaStream_t stream, const float* a,
+                       const float* k, float* out, int n, int c) {
+  if (variant == kVec4)
+    matvec_dot_kernel<L, true><<<grid, block, 0, stream>>>(a, k, out, n, c);
+  else
+    matvec_dot_kernel<L, false><<<grid, block, 0, stream>>>(a, k, out, n, c);
+}
+
 }  // namespace
 
 // Plain C entry points for ctypes. Every pointer is fp32 and contiguous;
@@ -151,14 +234,25 @@ extern "C" int tg_probe_lane_reduce(const void* a, const void* k, void* out, int
   return (int)cudaGetLastError();
 }
 
-// a [n, c], k [c, 1] -> out [n]; c * 4 bytes of shared memory, c <= 12288
+// a [n, c], k [c, 1] -> out [n], in the variant (0 scalar, 1 vec4), grid
+// and block (128 threads) of the wrapper's plan; n * c < 2^31
 extern "C" int tg_probe_matvec_dot(const void* a, const void* k, void* out, int n, int c,
-                                   void* stream) {
-  if (n < 1 || c < 1 || c > 12288) return (int)cudaErrorInvalidValue;
-  const int blocks = (n + kThreads - 1) / kThreads;
-  matvec_dot_kernel<<<blocks, kThreads, (size_t)c * sizeof(float), (cudaStream_t)stream>>>(
-      static_cast<const float*>(a), static_cast<const float*>(k), static_cast<float*>(out), n,
-      c);
+                                   int variant, int grid, int block, void* stream) {
+  if (n < 1 || c < 1 || (long long)n * c > 0x7fffffffLL ||
+      !probe_plan_ok(variant, c, grid, block, a, k))
+    return (int)cudaErrorInvalidValue;
+  const auto* pa = static_cast<const float*>(a);
+  const auto* pk = static_cast<const float*>(k);
+  auto* po = static_cast<float*>(out);
+  const auto s = (cudaStream_t)stream;
+  switch (matvec_lanes(c)) {
+    case 1: launch_matvec_dot<1>(variant, grid, block, s, pa, pk, po, n, c); break;
+    case 2: launch_matvec_dot<2>(variant, grid, block, s, pa, pk, po, n, c); break;
+    case 4: launch_matvec_dot<4>(variant, grid, block, s, pa, pk, po, n, c); break;
+    case 8: launch_matvec_dot<8>(variant, grid, block, s, pa, pk, po, n, c); break;
+    case 16: launch_matvec_dot<16>(variant, grid, block, s, pa, pk, po, n, c); break;
+    default: launch_matvec_dot<32>(variant, grid, block, s, pa, pk, po, n, c); break;
+  }
   return (int)cudaGetLastError();
 }
 
@@ -174,13 +268,20 @@ extern "C" int tg_probe_lane_concat_dot(const void* a, const void* k2, void* out
   return (int)cudaGetLastError();
 }
 
-// a [n, c], m [n] -> out [n, c]
+// a [n, c], m [n] -> out [n, c], in the variant (0 scalar, 1 vec4), grid
+// and block (128 threads) of the wrapper's plan; n * c < 2^31
 extern "C" int tg_probe_mask_broadcast(const void* a, const void* mask, void* out, int n, int c,
-                                       void* stream) {
-  if (n < 1 || c < 1) return (int)cudaErrorInvalidValue;
-  mask_broadcast_kernel<<<blocks_for((size_t)n * c), kThreads, 0, (cudaStream_t)stream>>>(
-      static_cast<const float*>(a), static_cast<const float*>(mask), static_cast<float*>(out), n,
-      c);
+                                       int variant, int grid, int block, void* stream) {
+  if (n < 1 || c < 1 || (long long)n * c > 0x7fffffffLL ||
+      !probe_plan_ok(variant, c, grid, block, a, out))
+    return (int)cudaErrorInvalidValue;
+  const auto* pa = static_cast<const float*>(a);
+  const auto* pm = static_cast<const float*>(mask);
+  auto* po = static_cast<float*>(out);
+  if (variant == kVec4)
+    mask_broadcast_kernel<true><<<grid, block, 0, (cudaStream_t)stream>>>(pa, pm, po, n, c);
+  else
+    mask_broadcast_kernel<false><<<grid, block, 0, (cudaStream_t)stream>>>(pa, pm, po, n, c);
   return (int)cudaGetLastError();
 }
 

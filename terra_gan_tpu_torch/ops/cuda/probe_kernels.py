@@ -8,6 +8,12 @@ flattened; the kernels are ``csrc/probes.cu`` (fp32 SIMT, launch-bound at
 the probes' 256 KiB; the source note there gives each design).
 ``empty_launch`` launches an empty kernel: the floor under their times.
 
+P2 and P4 have two variants each, ``vec4`` (16-byte loads; C % 4 == 0 and
+16-byte aligned inputs) and ``scalar`` (any C and alignment);
+``plan_probe`` picks the variant, grid and block from the tensors alone,
+and a wrapper's ``variant=`` forces one. Their ``.variants`` count the
+launches by variant.
+
 Each wrapper takes its plain version only for tensors on the CPU; for
 CUDA tensors it launches its kernel or raises, and counts the launch in
 its ``.launches``. None records a gradient.
@@ -20,6 +26,12 @@ import torch
 from ._build import check, load_library
 
 _INT_MAX = 2**31 - 1
+# P2's and P4's variants, numbered as the C entry points take them
+VARIANTS = ("scalar", "vec4")
+PROBE_THREADS = 128  # P2's and P4's block
+# the most blocks P2 and P4 launch: 16 of 128 threads fill an SM's 2048
+# threads on the 132 SMs of an H100; a grid-stride loop takes the rest
+MAX_PROBE_BLOCKS = 132 * 16
 
 
 def probe_lane_reduce_plain(a: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
@@ -68,16 +80,64 @@ def _on_card(entry: str, *tensors: torch.Tensor) -> bool:
     return True
 
 
-def _launch(wrapper, out: torch.Tensor, *args) -> torch.Tensor:
+def _launch(wrapper, out: torch.Tensor, *args, variant=None) -> torch.Tensor:
     """Launch ``wrapper``'s kernel (C symbol ``tg_<name>``) on the current
-    stream, raise on a launch error, and count the launch."""
+    stream, raise on a launch error, and count the launch (and its variant)."""
     entry = wrapper.__name__
     lib = load_library()
     with torch.cuda.device(out.device):
         stream = torch.cuda.current_stream().cuda_stream
         check(getattr(lib, f"tg_{entry}")(*args, stream), entry)
     wrapper.launches += 1
+    if variant is not None:
+        wrapper.variants[variant] += 1
     return out
+
+
+def matvec_lanes(c: int) -> int:
+    """The lanes a P2 row takes: the least power of two L <= 32 with 4L >= C."""
+    lanes = 1
+    while lanes < 32 and 4 * lanes < c:
+        lanes *= 2
+    return lanes
+
+
+def plan_probe(name: str, a: torch.Tensor, *others: torch.Tensor, variant=None):
+    """(variant, grid, block) of P2 (``probe_matvec_dot``, others = (k,)) or
+    P4 (``probe_mask_broadcast``, others = (m,)) for these tensors.
+
+    ``vec4`` where C % 4 == 0 and the float4-read inputs (a, and P2's k)
+    start on 16 bytes, else ``scalar``; ``variant`` forces one, and vec4
+    raises where it cannot run. The grid covers every row in one pass up to
+    MAX_PROBE_BLOCKS blocks (the kernels loop over the rest): P2 puts
+    PROBE_THREADS / L rows in a block, P4 a float4 (vec4) or an element
+    (scalar) in a thread. Raises above the kernels' 32-bit indices.
+    """
+    if name not in ("probe_matvec_dot", "probe_mask_broadcast"):
+        raise ValueError(f"plan_probe: no plan for {name}")
+    if a.dim() < 1 or a.numel() == 0:
+        raise ValueError(f"{name}: empty input {tuple(a.shape)}")
+    if a.numel() > _INT_MAX:
+        raise ValueError(f"{name}: {a.numel()} elements, above the kernel's int range")
+    c = a.shape[-1]
+    n = a.numel() // c
+    read4 = (a, *others) if name == "probe_matvec_dot" else (a,)
+    vec4_ok = c % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in read4)
+    if variant is None:
+        variant = "vec4" if vec4_ok else "scalar"
+    elif variant not in VARIANTS:
+        raise ValueError(f"{name}: variant {variant!r}, not one of {VARIANTS}")
+    elif variant == "vec4" and not vec4_ok:
+        raise ValueError(f"{name}: vec4 needs C % 4 == 0 and 16-byte aligned inputs "
+                         f"(C = {c}, offsets {[t.data_ptr() % 16 for t in read4]})")
+    if name == "probe_matvec_dot":
+        per_block = PROBE_THREADS // matvec_lanes(c)  # rows
+        items = n
+    else:
+        per_block = PROBE_THREADS  # float4s or elements
+        items = n * c // 4 if variant == "vec4" else n * c
+    grid = min(-(-items // per_block), MAX_PROBE_BLOCKS)
+    return variant, grid, PROBE_THREADS
 
 
 def _need(cond: bool, entry: str, msg: str) -> None:
@@ -97,17 +157,18 @@ def probe_lane_reduce(a: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
                    a.numel() // c, c)
 
 
-def probe_matvec_dot(a: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
-    """P2: a [..., C], k [C, 1] -> a @ k with the N = 1 dim dropped, [...]."""
+def probe_matvec_dot(a: torch.Tensor, k: torch.Tensor, variant=None) -> torch.Tensor:
+    """P2: a [..., C], k [C, 1] -> a @ k with the N = 1 dim dropped, [...];
+    ``variant`` forces plan_probe's choice."""
     if not _on_card("probe_matvec_dot", a, k):
         return probe_matvec_dot_plain(a, k)
     c = a.shape[-1]
-    _need(a.dim() >= 1 and a.numel() > 0 and tuple(k.shape) == (c, 1) and c <= 12288,
-          "probe_matvec_dot",
-          f"a {tuple(a.shape)} and k {tuple(k.shape)}: needs k [C, 1], C <= 12288")
+    _need(a.dim() >= 1 and a.numel() > 0 and tuple(k.shape) == (c, 1), "probe_matvec_dot",
+          f"a {tuple(a.shape)} and k {tuple(k.shape)}: needs k [C, 1]")
+    variant, grid, block = plan_probe("probe_matvec_dot", a, k, variant=variant)
     out = torch.empty(a.shape[:-1], dtype=torch.float32, device=a.device)
     return _launch(probe_matvec_dot, out, a.data_ptr(), k.data_ptr(), out.data_ptr(),
-                   a.numel() // c, c)
+                   a.numel() // c, c, VARIANTS.index(variant), grid, block, variant=variant)
 
 
 def probe_lane_concat_dot(a: torch.Tensor, k2: torch.Tensor) -> torch.Tensor:
@@ -126,16 +187,18 @@ def probe_lane_concat_dot(a: torch.Tensor, k2: torch.Tensor) -> torch.Tensor:
                    m, c, n)
 
 
-def probe_mask_broadcast(a: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
-    """P4: a [..., C], m [...] -> a * m[..., None]."""
+def probe_mask_broadcast(a: torch.Tensor, m: torch.Tensor, variant=None) -> torch.Tensor:
+    """P4: a [..., C], m [...] -> a * m[..., None]; ``variant`` forces
+    plan_probe's choice."""
     if not _on_card("probe_mask_broadcast", a, m):
         return probe_mask_broadcast_plain(a, m)
     c = a.shape[-1]
     _need(a.dim() >= 1 and a.numel() > 0 and tuple(m.shape) == tuple(a.shape[:-1]),
           "probe_mask_broadcast", f"a {tuple(a.shape)} and m {tuple(m.shape)}: needs m [...]")
-    out = torch.empty_like(a)
+    variant, grid, block = plan_probe("probe_mask_broadcast", a, m, variant=variant)
+    out = torch.empty_like(a)  # a fresh allocation: 16-byte aligned
     return _launch(probe_mask_broadcast, out, a.data_ptr(), m.data_ptr(), out.data_ptr(),
-                   a.numel() // c, c)
+                   a.numel() // c, c, VARIANTS.index(variant), grid, block, variant=variant)
 
 
 def probe_row_build(a: torch.Tensor) -> torch.Tensor:
@@ -152,6 +215,8 @@ PROBES = (probe_lane_reduce, probe_matvec_dot, probe_lane_concat_dot, probe_mask
           probe_row_build)
 for _probe in PROBES:
     _probe.launches = 0
+for _probe in (probe_matvec_dot, probe_mask_broadcast):
+    _probe.variants = dict.fromkeys(VARIANTS, 0)
 # each wrapper's plain version, which a card's results are held against
 PLAIN = {probe_lane_reduce: probe_lane_reduce_plain, probe_matvec_dot: probe_matvec_dot_plain,
          probe_lane_concat_dot: probe_lane_concat_dot_plain,

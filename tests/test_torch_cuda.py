@@ -10,6 +10,7 @@ not installed; there, skip the JAX-forcing conftest:
 from __future__ import annotations
 
 import copy
+import math
 
 import numpy as np
 import pytest
@@ -38,9 +39,12 @@ from terra_gan_tpu_torch.cli.probe_cuda import probe_cases, probe_inputs
 from terra_gan_tpu_torch.evaluation.inference import OUTPUT_SIZE, evaluate
 from terra_gan_tpu_torch.ops.cuda.probe_kernels import (
     PLAIN,
+    VARIANTS,
+    plan_probe,
     probe_lane_concat_dot,
     probe_lane_reduce,
     probe_mask_broadcast,
+    probe_matvec_dot,
 )
 from terra_gan_tpu_torch.parallel.infer import BatchedInpainter
 from terra_gan_tpu_torch.training.state import GANTrainState
@@ -532,6 +536,50 @@ def test_probe_kernel_matches_its_plain_version(card, case):
             assert torch.equal(got, want)
         else:
             assert (got - want).abs().max().item() <= 1e-6 * want.abs().max().item()
+
+
+# P2's and P4's inputs: the script's shapes, odd C over 3 leading dims, a
+# single row, and a contiguous view at a 4-byte offset; vec4 takes neither
+# C = 33 nor the offset view
+P2_P4_CASES = {"script": (16, 64, 64), "odd": (3, 5, 7, 33), "row": (1, 64),
+               "offset": (16, 64, 64)}
+
+
+def p2_p4_args(fn, case: str, dev):
+    g = torch.Generator().manual_seed(len(case))
+    shape = P2_P4_CASES[case]
+    skip = 1 if case == "offset" else 0  # floats before a's first, in one allocation
+    a = torch.rand(skip + math.prod(shape), generator=g).to(dev)[skip:].view(shape)
+    other = (torch.rand((shape[-1], 1), generator=g) if fn is probe_matvec_dot
+             else torch.rand(shape[:-1], generator=g))
+    return a, other.to(dev)
+
+
+@pytest.mark.parametrize("case", list(P2_P4_CASES))
+@pytest.mark.parametrize("variant", VARIANTS)
+@pytest.mark.parametrize("fn", [probe_matvec_dot, probe_mask_broadcast],
+                         ids=["p2", "p4"])
+def test_p2_p4_variant_matches_its_plain_version(card, fn, variant, case):
+    a, other = p2_p4_args(fn, case, card)
+    runs = variant == "scalar" or (a.shape[-1] % 4 == 0 and a.data_ptr() % 16 == 0)
+    assert plan_probe(fn.__name__, a, other)[0] == ("vec4" if case in ("script", "row")
+                                                     else "scalar")
+    before, by_variant = fn.launches, dict(fn.variants)
+    if not runs:
+        with pytest.raises(ValueError, match="vec4 needs"):
+            fn(a, other, variant=variant)
+        assert fn.launches == before and fn.variants == by_variant
+        return
+    got = fn(a, other, variant=variant)
+    want = PLAIN[fn](a, other)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    assert fn.variants[variant] == by_variant[variant] + 1
+    assert got.shape == want.shape
+    if fn is probe_mask_broadcast:
+        assert torch.equal(got, want)
+    else:
+        assert (got - want).abs().max().item() <= 1e-6 * want.abs().max().item()
 
 
 def test_probe_kernels_refuse_what_they_do_not_take(card):
