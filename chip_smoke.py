@@ -10,7 +10,8 @@ Phases, one line of figures each (any failure raises and exits nonzero):
      (cuobjdump -sass); K2's and K3's MMA kernels must have some, and no
      K2 or K3 kernel may spill; K3's dynamic shared memory and the blocks
      an SM holds; P2's and P4's 14 kernels (6 lane counts x 2 variants,
-     2 variants) must not spill either;
+     2 variants) and K1's 6 (fwd in fp32 and bf16, bwd in each at 1 and
+     2 rows a thread) must not spill either;
   3. K2 fused_pconv_eval against its plain version at the 14 stage
      geometries of the full-width (base_width=64) 512^2 PConvUNet, batch 2,
      with the stage's weight planes packed once: per stage its variant
@@ -18,11 +19,17 @@ Phases, one line of figures each (any failure raises and exits nonzero):
      of one cuDNN fp32 conv of the same masked input (channels_last, the
      yardstick: the conv alone); two calls must be bitwise equal;
   4. K1 upsample2x_fwd against its plain version at the 7 decoder
-     shapes, fp32 (torch's bits) and bf16; its fp32 times at batch 8 too,
-     beside F.interpolate's;
-  5. K1 upsample2x_bwd against torch's own upsample backward at the same
-     shapes, fp32 and bf16, and the adjointness <U x, g> = <x, U^T g>;
-     its fp32 times at batch 8 too, beside upsample_bilinear2d_backward's;
+     shapes at batch 2 and 8, fp32 (torch's bits) and, at batch 2, bf16
+     (1 ulp); per shape the device ms a call by CUDA graph replay of the
+     kernel (one kernel node a call), its plain version, F.interpolate and
+     an empty launch, with the calls a graph scaled to a replay of about
+     GRAPH_MIN_MS (at most 1000), rotating over copies of the input (and
+     outputs) that together pass twice the 50 MB L2, beside the byte
+     bound, the wrapper's host ms a call and the per-call CUDA-event ms
+     (call_ms);
+  5. K1 upsample2x_bwd the same way against torch's own upsample backward
+     (upsample_bilinear2d_backward, also its library call), fp32 and, at
+     batch 2, bf16 and the adjointness <U x, g> = <x, U^T g>;
      then pack_pconv_weights, the one launch a forward that packs K2's
      TF32 weight planes of all 14 stages, against the plain packing
      (bitwise);
@@ -87,8 +94,10 @@ of its bytes over 3.35 TB/s and its operations over the peak of the
 unit it runs on, from this run's shapes: the 67 TFLOP/s of fp32 outside
 the tensor cores, or for K2's MMA stages and K3's dec1 495 TFLOP/s of
 dense TF32 over the 3 TF32 products of each fp32 product; a probe's ms,
-plain_ms and library_ms are device times a launch by graph replay, and
-K2's, P2's and P4's launches are also given by variant), and last
+plain_ms and library_ms are device times a launch by graph replay, K1's
+the same summed over its 7 shapes at batch 2 (and at 8, and the largest
+shape, beside them), and K2's, P2's and P4's launches are also given by
+variant), and last
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Without CUDA it exits nonzero before printing any result.
 """
@@ -99,6 +108,7 @@ import contextlib
 import copy
 import ctypes
 import io
+import itertools
 import json
 import logging
 import math
@@ -192,12 +202,18 @@ GRAD_TOL = 1e-5
 K3_NRMSE_TOL = 1e-5
 SERVE_REQUESTS, SERVE_BATCH_ITEMS, SERVE_MAX_BATCH = 16, 4, 8
 SERVE_SECRET = "chip-smoke-secret"
-K1_B8_BATCH = 8
+# K1 is timed at the batch of the other kernels and at the profile's 8
+K1_BATCHES = (STAGE_BATCH, 8)
 # P1-P3 against their plain versions, of max|plain|: fp32 sums in another
 # order (sums of 64 and 128 products); P4 and P5 round as torch does: equal
 PROBE_SUM_REL_TOL = 1e-6
 # device time per launch by graph replay: calls captured in one graph, timed replays
 GRAPH_LAUNCHES, GRAPH_REPLAYS = 1000, 5
+# where GRAPH_LAUNCHES calls would take longer, fewer: a replay of about this many ms
+GRAPH_MIN_MS = 20.0
+# the H100's L2: K1's graph calls rotate over as many inputs and outputs as
+# pass twice this, so that each call reads its input from device memory
+L2_BYTES = 50 * 2**20
 CLI_GRIDS, CLI_TILES = ("NJ05", "SU12"), 8
 # scripts/probe_mosaic.py's lines of the probes the kernels replace
 PROBE_REPLACES = {"probe_lane_reduce": 45, "probe_matvec_dot": 66, "probe_lane_concat_dot": 91,
@@ -399,6 +415,12 @@ def phase_build():
             if "matvec_dot_kernel" in fn or "mask_broadcast_kernel" in fn}
     require(len(p2p4) == 14 and all(r.get("spill_bytes") == 0 for r in p2p4.values()),
             f"build: P2's and P4's kernels are not 14 without spills: {p2p4}")
+    # K1: the forward in fp32 and bf16, the adjoint in each at 1 and 2 dx rows a thread
+    k1 = {fn: r for fn, r in report.items() if "upsample2x_" in fn and "_kernel" in fn}
+    for fn, r in sorted(k1.items()):
+        line("build", k1_kernel=fn, registers=r.get("registers"), spill_bytes=r.get("spill_bytes"))
+    require(len(k1) == 6 and all(r.get("spill_bytes") == 0 for r in k1.values()),
+            f"build: K1's kernels are not 6 without spills: {k1}")
 
 
 def stage_inputs(st, h: int, ca: int, cb: int, batch: int, gen, dev):
@@ -500,107 +522,183 @@ def upsample_shapes(width: int):
             (SIZE >> 1, w)]
 
 
+def k1_library(direction: str):
+    """The one PyTorch call that computes K1 ``direction``, as a function
+    of the NHWC source: torch's upsample on its NCHW view, or its backward."""
+    if direction == "fwd":
+        return lambda src: F.interpolate(src.permute(0, 3, 1, 2), scale_factor=2,
+                                         mode="bilinear", align_corners=False)
+
+    def backward(src):
+        n, h2, w2, c = src.shape
+        return torch.ops.aten.upsample_bilinear2d_backward(
+            src.permute(0, 3, 1, 2), [h2, w2], [n, c, h2 // 2, w2 // 2], False, 2.0, 2.0)
+    return backward
+
+
+def graph_calls(est_ms: float) -> int:
+    """Calls to capture in one graph so that a replay lasts about
+    GRAPH_MIN_MS at ``est_ms`` a call, at most GRAPH_LAUNCHES."""
+    return max(1, min(GRAPH_LAUNCHES, math.ceil(GRAPH_MIN_MS / max(est_ms, 1e-9))))
+
+
+def past_l2(src: torch.Tensor, out_bytes: int, calls: int) -> list:
+    """src and copies of it, as many as make the inputs and outputs of
+    ``calls`` calls pass twice the L2 (one where a call alone does)."""
+    copies = min(calls, math.ceil(2 * L2_BYTES / (nbytes(src) + out_bytes)))
+    return [src] + [src.clone() for _ in range(copies - 1)]
+
+
+def rotating(fn, srcs: list):
+    """A call of fn on each of srcs in turn, each output held until its
+    turn comes round again: captured in a graph, its calls read and write
+    len(srcs) + 1 buffers each way, not the same one from L2."""
+    held, turn = [None] * len(srcs), itertools.count()
+
+    def call():
+        k = next(turn) % len(srcs)
+        held[k] = fn(srcs[k])
+    return call
+
+
+def k1_times(direction: str, src: torch.Tensor, kernel=None, yardsticks: bool = True) -> dict:
+    """K1 ``direction`` at src's shape on the device by graph replay: the
+    kernel (held to one kernel node a call), its plain version and its
+    library call, with calls a graph scaled to the shape's byte bound and
+    rotated over copies of src past the L2 (past_l2); the bound (each
+    input read once, each output written once); the wrapper's host ms a
+    call and the per-call CUDA-event ms (``call_ms``, the figure before
+    graph replay: it holds the host's launch). ``kernel`` replaces the
+    port's wrapper (a parent commit's, in profile_slice.py); without
+    ``yardsticks`` the plain version and library call are not timed."""
+    port, plain = ((upsample2x_fwd, upsample2x_fwd_plain) if direction == "fwd"
+                   else (upsample2x_bwd, upsample2x_bwd_plain))
+    kernel = kernel or port
+    out = kernel(src)
+    # per output value two FMAs and a multiply a tap pair (fwd); per dx
+    # value 20 FMAs, 4 rows of 4 taps and then the rows (bwd)
+    fig = bound((9.0 if direction == "fwd" else 40.0) * out.numel(), nbytes(src, out))
+    calls = graph_calls(fig["bound_ms"])
+    srcs = past_l2(src, nbytes(out), calls)
+    what = f"K1 {direction} {'x'.join(map(str, src.shape))}"
+    times = dict(ms=timed_on_device(what, rotating(kernel, srcs), kernels=1, launches=calls),
+                 plain_ms=None, library_ms=None)
+    if yardsticks:
+        times.update(
+            plain_ms=timed_on_device(f"{what} plain", rotating(plain, srcs), launches=calls),
+            library_ms=timed_on_device(f"{what} library", rotating(k1_library(direction), srcs),
+                                       launches=calls))
+    return dict(**times, host_ms=host_ms(lambda: kernel(src)), call_ms=time_ms(lambda: kernel(src)),
+                calls=calls, copies=len(srcs), **fig)
+
+
+def k1_line(phase: str, batch: int, shape: str, r: dict, empty: float, **extra) -> None:
+    text = lambda v: "-" if v is None else f"{v:.5f}"  # noqa: E731  (- : not timed in this turn)
+    line(phase, batch=batch, shape=shape, ms=f"{r['ms']:.5f}", plain_ms=text(r["plain_ms"]),
+         library_ms=text(r["library_ms"]), empty_ms=f"{empty:.5f}",
+         bound_ms=f"{r['bound_ms']:.5f}", vs_bound=f"{r['ms'] / r['bound_ms']:.3f}",
+         host_ms=f"{r['host_ms']:.4f}", call_ms=f"{r['call_ms']:.4f}", calls=r["calls"],
+         copies=r["copies"], **extra)
+
+
+def k1_figures(direction: str, rows, empty: float, worst: float) -> dict:
+    """The kernels line's K1 entry: device ms by graph replay summed over
+    the 7 shapes at batch 2 (ms, plain_ms, library_ms and the bound), the
+    same at batch 8, and the largest shape at each."""
+    def summed(batch):
+        rs = [r for r in rows if r["batch"] == batch]
+        return {k: sum(r[k] for r in rs) for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                                    "host_ms", "call_ms")}
+    out = dict(max_abs_err=worst, **summed(STAGE_BATCH), bound_by="bytes", empty_ms=empty,
+               timing="device ms by CUDA graph replay, the 7 decoder shapes summed at batch 2")
+    for batch in K1_BATCHES:
+        largest = [r for r in rows if r["batch"] == batch][-1]
+        out[f"batch{batch}"] = summed(batch)
+        out[f"batch{batch}_largest"] = {k: largest[k] for k in
+                                        ("shape", "ms", "plain_ms", "library_ms", "bound_ms")}
+    return out
+
+
+def k1_totals(phase: str, rows, batch: int) -> None:
+    rs = [r for r in rows if r["batch"] == batch]
+    t = {k: sum(r[k] for r in rs) for k in ("ms", "plain_ms", "library_ms", "bound_ms", "host_ms",
+                                           "call_ms")}
+    line(phase, batch=batch, shapes=len(rs), **{k: f"{v:.5f}" for k, v in t.items()},
+         vs_bound=f"{t['ms'] / t['bound_ms']:.3f}")
+
+
 def phase_k1(model, dev):
+    """K1 fwd at the 7 decoder shapes, batch 2 and 8: fp32 equal to torch's
+    bits, bf16 within 1 ulp (batch 2), and the times of k1_times."""
     gen = torch.Generator().manual_seed(SEED + 2)
-    worst_abs, ms, plain_ms, lib_ms, flop, moved = 0.0, 0.0, 0.0, 0.0, 0.0, 0
-    b8 = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "flop": 0.0, "bytes": 0}
-    for h, c in upsample_shapes(model.base_width):
-        x = torch.rand((STAGE_BATCH, h, h, c), generator=gen).to(dev)
-        # fp32 at the profile's batch 8 as well (information only)
-        x8 = torch.rand((K1_B8_BATCH, h, h, c), generator=gen).to(dev)
-        y8 = upsample2x_fwd(x8)
-        b8["ms"] += time_ms(lambda: upsample2x_fwd(x8))
-        b8["plain_ms"] += time_ms(lambda: upsample2x_fwd_plain(x8))
-        x8_nchw = x8.permute(0, 3, 1, 2)
-        b8["library_ms"] += time_ms(lambda: F.interpolate(x8_nchw, scale_factor=2, mode="bilinear",
-                                                          align_corners=False))
-        b8["flop"] += 9.0 * y8.numel()
-        b8["bytes"] += nbytes(x8, y8)
-        del x8, y8, x8_nchw
-        got, want = upsample2x_fwd(x), upsample2x_fwd_plain(x)
-        err = (got - want).abs().max().item()
-        xb = x.bfloat16()
-        got_b = upsample2x_fwd(xb).float()
-        want_b = upsample2x_fwd_plain(xb.float())
-        ulps = ((got_b - want_b).abs() / _bf16_ulp(want_b)).max().item()
-        t_k = time_ms(lambda: upsample2x_fwd(x))
-        t_p = time_ms(lambda: upsample2x_fwd_plain(x))
-        t_kb = time_ms(lambda: upsample2x_fwd(xb))
-        t_pb = time_ms(lambda: upsample2x_fwd_plain(xb))
-        x_nchw = x.permute(0, 3, 1, 2)  # the library call: F.interpolate alone
-        t_l = time_ms(lambda: F.interpolate(x_nchw, scale_factor=2, mode="bilinear",
-                                            align_corners=False))
-        line("k1", x=f"{STAGE_BATCH}x{h}x{h}x{c}", f32_max_abs_err=f"{err:.3e}",
-             bf16_max_ulps=f"{ulps:.3f}", ms=f"{t_k:.4f}", plain_ms=f"{t_p:.4f}",
-             library_ms=f"{t_l:.4f}", bf16_ms=f"{t_kb:.4f}", bf16_plain_ms=f"{t_pb:.4f}")
-        require(err <= K1_F32_ABS_TOL, f"K1 {h}x{c}: fp32 err {err}: not torch's bits")
-        require(ulps <= 1.0, f"K1 {h}x{c}: bf16 off by {ulps} ulp")
-        worst_abs, ms, plain_ms = max(worst_abs, err), ms + t_k, plain_ms + t_p
-        lib_ms += t_l
-        flop += 9.0 * got.numel()  # two FMAs and a multiply per axis pair of taps
-        moved += nbytes(x, got)
-    b8_bound = bound(b8["flop"], b8["bytes"])
-    line("k1_b8", batch=K1_B8_BATCH, shapes=7, ms=f"{b8['ms']:.4f}",
-         plain_ms=f"{b8['plain_ms']:.4f}", library_ms=f"{b8['library_ms']:.4f}",
-         bound_ms=f"{b8_bound['bound_ms']:.4f}", bound_by=b8_bound["bound_by"])
-    return dict(max_abs_err=worst_abs, ms=ms, plain_ms=plain_ms, **bound(flop, moved),
-                library_ms=lib_ms)
+    empty = timed_on_device("the empty launch", lambda: empty_launch(dev), kernels=1)
+    rows, worst = [], 0.0
+    for batch in K1_BATCHES:
+        for h, c in upsample_shapes(model.base_width):
+            x = torch.rand((batch, h, h, c), generator=gen).to(dev)
+            err = (upsample2x_fwd(x) - upsample2x_fwd_plain(x)).abs().max().item()
+            extra = {}
+            if batch == STAGE_BATCH:
+                xb = x.bfloat16()
+                got_b = upsample2x_fwd(xb).float()
+                want_b = upsample2x_fwd_plain(xb.float())
+                ulps = ((got_b - want_b).abs() / _bf16_ulp(want_b)).max().item()
+                require(ulps <= 1.0, f"K1 {h}x{c}: bf16 off by {ulps} ulp")
+                t_b = timed_on_device("K1 fwd bf16", rotating(
+                    upsample2x_fwd, past_l2(xb, 4 * nbytes(xb), GRAPH_LAUNCHES)), kernels=1)
+                extra = dict(bf16_max_ulps=f"{ulps:.3f}", bf16_ms=f"{t_b:.5f}")
+            r = dict(batch=batch, shape=f"{batch}x{h}x{h}x{c}", **k1_times("fwd", x))
+            k1_line("k1", batch, r["shape"], r, empty, f32_max_abs_err=f"{err:.3e}", **extra)
+            require(err <= K1_F32_ABS_TOL, f"K1 {batch}x{h}x{c}: fp32 err {err}: not torch's bits")
+            worst = max(worst, err)
+            rows.append(r)
+            del x
+        k1_totals("k1", rows, batch)
+    return k1_figures("fwd", rows, empty, worst)
 
 
 def phase_k1_bwd(model, dev):
+    """K1 bwd at the 7 decoder shapes, batch 2 and 8: fp32 within
+    K1_BWD_REL_TOL of torch's backward, and at batch 2 bf16 within 1 ulp
+    and the adjointness <U x, g> = <x, U^T g>; the times of k1_times."""
     gen = torch.Generator().manual_seed(SEED + 4)
-    worst_abs, ms, plain_ms, lib_ms, flop, moved = 0.0, 0.0, 0.0, 0.0, 0.0, 0
-    b8 = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "flop": 0.0, "bytes": 0}
-    for h, c in upsample_shapes(model.base_width):
-        # fp32 at the profile's batch 8 as well (information only)
-        g8 = torch.randn((K1_B8_BATCH, 2 * h, 2 * h, c), generator=gen).to(dev)
-        g8_nchw, size8 = g8.permute(0, 3, 1, 2), [K1_B8_BATCH, c, h, h]
-        b8["ms"] += time_ms(lambda: upsample2x_bwd(g8))
-        b8["plain_ms"] += time_ms(lambda: upsample2x_bwd_plain(g8))
-        b8["library_ms"] += time_ms(lambda: torch.ops.aten.upsample_bilinear2d_backward(
-            g8_nchw, [2 * h, 2 * h], size8, False, 2.0, 2.0))
-        b8["flop"] += 40.0 * g8.numel() / 4
-        b8["bytes"] += nbytes(g8) * 5 // 4
-        del g8, g8_nchw
-        g = torch.randn((STAGE_BATCH, 2 * h, 2 * h, c), generator=gen).to(dev)
-        got, want = upsample2x_bwd(g), upsample2x_bwd_plain(g)
-        err = (got - want).abs().max().item()
-        scale = want.abs().max().item()
-        # bf16 on positive data: a sum of positive taps has no cancellation,
-        # so the fp32 result of the bf16 inputs is within rounding of exact
-        gb = torch.rand((STAGE_BATCH, 2 * h, 2 * h, c), generator=gen).to(dev).bfloat16()
-        got_b = upsample2x_bwd(gb).float()
-        want_b = upsample2x_bwd_plain(gb.float())
-        ulps = ((got_b - want_b).abs() / _bf16_ulp(want_b)).max().item()
-        x = torch.randn((STAGE_BATCH, h, h, c), generator=gen).to(dev)
-        prod = upsample2x_fwd(x).double() * g.double()
-        adj = abs(prod.sum().item() - (x.double() * got.double()).sum().item())
-        adj /= prod.abs().sum().item()
-        t_k = time_ms(lambda: upsample2x_bwd(g))
-        t_p = time_ms(lambda: upsample2x_bwd_plain(g))
-        t_kb = time_ms(lambda: upsample2x_bwd(gb))
-        t_pb = time_ms(lambda: upsample2x_bwd_plain(gb))
-        g_nchw, size = g.permute(0, 3, 1, 2), [STAGE_BATCH, c, h, h]
-        t_l = time_ms(lambda: torch.ops.aten.upsample_bilinear2d_backward(
-            g_nchw, [2 * h, 2 * h], size, False, 2.0, 2.0))
-        line("k1_bwd", g=f"{STAGE_BATCH}x{2 * h}x{2 * h}x{c}", f32_max_abs_err=f"{err:.3e}",
-             rel=f"{err / max(scale, 1e-30):.3e}", bf16_max_ulps=f"{ulps:.3f}",
-             adjoint_rel=f"{adj:.3e}", ms=f"{t_k:.4f}", plain_ms=f"{t_p:.4f}",
-             library_ms=f"{t_l:.4f}", bf16_ms=f"{t_kb:.4f}", bf16_plain_ms=f"{t_pb:.4f}")
-        require(got.shape == (STAGE_BATCH, h, h, c), f"K1 bwd {h}x{c}: shape {tuple(got.shape)}")
-        require(err <= K1_BWD_REL_TOL * scale, f"K1 bwd {h}x{c}: fp32 err {err} > 1e-6 * {scale}")
-        require(ulps <= 1.0, f"K1 bwd {h}x{c}: bf16 off by {ulps} ulp")
-        require(adj <= ADJOINT_TOL, f"K1 bwd {h}x{c}: not the adjoint of K1 fwd ({adj})")
-        worst_abs, ms, plain_ms = max(worst_abs, err), ms + t_k, plain_ms + t_p
-        lib_ms += t_l
-        flop += 40.0 * got.numel()  # 20 FMAs a dx value: 4 rows of 4 taps, then the rows
-        moved += nbytes(g, got)
-    b8_bound = bound(b8["flop"], b8["bytes"])
-    line("k1_bwd_b8", batch=K1_B8_BATCH, shapes=7, ms=f"{b8['ms']:.4f}",
-         plain_ms=f"{b8['plain_ms']:.4f}", library_ms=f"{b8['library_ms']:.4f}",
-         bound_ms=f"{b8_bound['bound_ms']:.4f}", bound_by=b8_bound["bound_by"])
-    return dict(max_abs_err=worst_abs, ms=ms, plain_ms=plain_ms, **bound(flop, moved),
-                library_ms=lib_ms)
+    empty = timed_on_device("the empty launch", lambda: empty_launch(dev), kernels=1)
+    rows, worst = [], 0.0
+    for batch in K1_BATCHES:
+        for h, c in upsample_shapes(model.base_width):
+            g = torch.randn((batch, 2 * h, 2 * h, c), generator=gen).to(dev)
+            got, want = upsample2x_bwd(g), upsample2x_bwd_plain(g)
+            require(got.shape == (batch, h, h, c), f"K1 bwd {h}x{c}: shape {tuple(got.shape)}")
+            err = (got - want).abs().max().item()
+            scale = want.abs().max().item()
+            require(err <= K1_BWD_REL_TOL * scale, f"K1 bwd {h}x{c}: fp32 err {err} > 1e-6 * {scale}")
+            extra = dict(rel=f"{err / max(scale, 1e-30):.3e}")
+            if batch == STAGE_BATCH:
+                # bf16 on positive data: a sum of positive taps has no
+                # cancellation, so the fp32 result of the bf16 inputs is
+                # within rounding of exact
+                gb = torch.rand((batch, 2 * h, 2 * h, c), generator=gen).to(dev).bfloat16()
+                got_b = upsample2x_bwd(gb).float()
+                want_b = upsample2x_bwd_plain(gb.float())
+                ulps = ((got_b - want_b).abs() / _bf16_ulp(want_b)).max().item()
+                x = torch.randn((batch, h, h, c), generator=gen).to(dev)
+                prod = upsample2x_fwd(x).double() * g.double()
+                adj = abs(prod.sum().item() - (x.double() * got.double()).sum().item())
+                adj /= prod.abs().sum().item()
+                require(ulps <= 1.0, f"K1 bwd {h}x{c}: bf16 off by {ulps} ulp")
+                require(adj <= ADJOINT_TOL, f"K1 bwd {h}x{c}: not the adjoint of K1 fwd ({adj})")
+                t_b = timed_on_device("K1 bwd bf16", rotating(
+                    upsample2x_bwd, past_l2(gb, nbytes(gb) // 4, GRAPH_LAUNCHES)), kernels=1)
+                extra.update(bf16_max_ulps=f"{ulps:.3f}", adjoint_rel=f"{adj:.3e}",
+                             bf16_ms=f"{t_b:.5f}")
+                del gb, x, prod
+            r = dict(batch=batch, shape=f"{batch}x{2 * h}x{2 * h}x{c}", **k1_times("bwd", g))
+            k1_line("k1_bwd", batch, r["shape"], r, empty, f32_max_abs_err=f"{err:.3e}", **extra)
+            worst = max(worst, err)
+            rows.append(r)
+            del g, got, want
+        k1_totals("k1_bwd", rows, batch)
+    return k1_figures("bwd", rows, empty, worst)
 
 
 def phase_pack(model):
@@ -1263,12 +1361,12 @@ def probe_check(name: str, got, want, label: str = "") -> float:
     return err
 
 
-def timed_on_device(what: str, fn, kernels=None) -> float:
-    """graph_device_ms of fn; where ``kernels`` is given, the graph must hold
-    exactly that many kernel launches a call."""
-    ms, per_call = graph_device_ms(fn)
+def timed_on_device(what: str, fn, kernels=None, launches: int = GRAPH_LAUNCHES) -> float:
+    """graph_device_ms of fn over ``launches`` calls; where ``kernels`` is
+    given, the graph must hold exactly that many kernel launches a call."""
+    ms, per_call = graph_device_ms(fn, launches)
     require(kernels is None or per_call == kernels,
-            f"probes: the graph of {what} holds {per_call} kernels a call, not {kernels}")
+            f"the graph of {what} holds {per_call} kernels a call, not {kernels}")
     return ms
 
 

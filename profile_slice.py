@@ -48,9 +48,7 @@ the card) measures
      over 5 steps after 2 warm-up steps, two runs each (host clock
      around synchronised steps), and the peak memory;
   9. a torch.profiler trace of 3 steps at batch 8: busy time, idle
-     share, device time by kernel name and K1 backward's share;
- 10. K1 backward at the 7 decoder shapes at batch 8, kernel and plain ms
-     and the achieved bytes/s.
+     share, device time by kernel name and K1 backward's share.
 
 The probes leg times P2 and P4 (csrc/probes.cu) at scripts/probe_mosaic.py's
 shapes, as chip_smoke.py's probes phase does (graph_device_ms: 1000
@@ -64,9 +62,26 @@ calls in one CUDA graph, the median of 5 timed replays over 1000):
      signatures, in turns parent, change, change, parent; every version
      held against the plain version (P4 equal, P2 within 1e-6 of max).
 
+The k1 leg times K1 fwd and bwd (csrc/upsample2x.cu) at the 7 decoder
+shapes at batch 1, 2, 8 and 32, as chip_smoke.py's k1 phases do
+(chip_smoke.k1_times: device ms a call by graph replay, one kernel node
+a call, beside the plain version, the library call, an empty launch and
+the byte bound, with the wrapper's host ms and the per-call ms):
+
+ 12. with --parent DIR the parent's two kernels, built alone from DIR's
+     csrc/upsample2x.cu and called by the steps its wrappers took, in
+     turns parent, change, change, parent, with the largest difference
+     of their outputs from the change's; at batch 8, in fp32 and bf16,
+     every tiling plan_upsample could pick (the adjoint's rows a thread,
+     the tile height), through the C entry directly, each held
+     bitwise to the wrapper's output. Every K1 timing rotates over copies of its input
+     past the L2 (chip_smoke.past_l2).
+
+The inference leg's trace also gives K1's share of busy time.
+
 It prints one line per figure and writes all of them as JSON to --out
 (and the traces beside it); --legs picks some of the legs (inference,
-stage, tail, serve, train, probes; all by default). Without CUDA it
+stage, tail, serve, train, probes, k1; all by default). Without CUDA it
 exits nonzero.
 """
 
@@ -88,10 +103,10 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from chip_smoke import (
-    SEED, SIZE, WIDTH, bound, dec2_outputs, device_batch, device_ms, dsm_tiles, graph_device_ms,
-    host_ms, k2_stage, k3_bound, k3_work, line, ms_text, phase_build, phase_env, probe_check,
-    stage_geometries, stage_inputs, sum_bounds, time_ms, train_state, unfused_forward,
-    upsample_shapes,
+    SEED, SIZE, WIDTH, bound, dec2_outputs, device_batch, device_ms, dsm_tiles, graph_calls,
+    graph_device_ms, host_ms, k1_line, k1_times, k2_stage, k3_bound, k3_work, line, ms_text,
+    nbytes, past_l2, phase_build, phase_env, probe_check, rotating, stage_geometries,
+    stage_inputs, sum_bounds, time_ms, train_state, unfused_forward, upsample_shapes,
 )
 from terra_gan_tpu_torch.cli.probe_cuda import probe_inputs
 from terra_gan_tpu_torch.ops.cuda._build import BUILD_ROOT, NVCC_FLAGS, check, find_nvcc
@@ -103,7 +118,9 @@ from terra_gan_tpu_torch.models.generator import STAGES
 from terra_gan_tpu_torch.ops.cuda.tail_kernel import fused_decoder_tail, fused_decoder_tail_plain
 from terra_gan_tpu_torch.ops.resize import upsample2x_bilinear
 from terra_gan_tpu_torch.serving import InpaintClient, InpaintService, make_server
-from terra_gan_tpu_torch.ops.cuda.upsample_kernel import upsample2x_bwd, upsample2x_bwd_plain
+from terra_gan_tpu_torch.ops.cuda.upsample_kernel import (  # the tiling sweep takes the private two
+    _launch_args, _tiling, plan_upsample, upsample2x_bwd, upsample2x_fwd,
+)
 from terra_gan_tpu_torch.training.step import make_train_step
 from terra_gan_tpu_torch.ops.cuda._build import check, load_library
 from terra_gan_tpu_torch.ops.cuda.pconv_kernel import (
@@ -124,8 +141,9 @@ SERVE_LOADS = ((1, 16), (16, 64))  # (concurrency, requests)
 CHUNKS = (8, 16, 32)
 E2E_TILES = 32
 STAGE_BATCHES = (1, 8)
-K1_BWD_BATCH = 8
-LEGS = ("inference", "stage", "tail", "serve", "train", "probes")
+K1_BATCHES = (1, 2, 8, 32)
+SWEEP_BATCHES = (8,)  # where the k1 leg times every plan the planner could take
+LEGS = ("inference", "stage", "tail", "serve", "train", "probes", "k1")
 TRAIN_BATCHES = (8, 16, 32)
 TRAIN_STEPS = 5
 TRACE_STEPS = 3
@@ -211,8 +229,12 @@ def profiled(run, trace_path: Path, label: str, **fields):
 def trace(model, dev, imgs, masks, out: Path):
     inp = BatchedInpainter(model, dev, chunk=CHUNKS[0], quantize_uint8=True)
     inp(imgs[: CHUNKS[0]], masks[: CHUNKS[0]])
-    return profiled(lambda: inp(imgs, masks), out.with_suffix(".trace.json"), "trace",
-                    chunk=CHUNKS[0], tiles=len(imgs))
+    row = profiled(lambda: inp(imgs, masks), out.with_suffix(".trace.json"), "trace",
+                   chunk=CHUNKS[0], tiles=len(imgs))
+    k1 = sum(t for n, t in row["by_name_ms"].items() if "upsample2x_fwd" in n)
+    row.update(k1_ms=k1, k1_share=k1 / row["busy_ms"])
+    line("trace", k1_ms=f"{k1:.3f}", k1_share=f"{row['k1_share']:.5f}")
+    return row
 
 
 def mma_alternative_ms(args, xs, packed, tile: int, splits: int) -> float:
@@ -434,20 +456,154 @@ def train_trace(dev, imgs, masks, out: Path):
     return row
 
 
-def k1_bwd_rates(dev):
-    gen = torch.Generator().manual_seed(SEED + 4)
+def parent_k1(root: Path):
+    """K1 fwd and bwd of a parent checkout at ``root``: its
+    csrc/upsample2x.cu built alone with the port's nvcc flags into
+    build/parent_k1/, called through its C signature (src, dst, N, H, W,
+    C, dtype, stream) by the steps its wrappers took: the checks,
+    torch.empty, load_library, torch.cuda.device, current_stream, the
+    ctypes call by name."""
+    src = root / "terra_gan_tpu_torch" / "csrc" / "upsample2x.cu"
+    so = BUILD_ROOT.parent / "parent_k1" / "libparent_k1.so"
+    so.parent.mkdir(parents=True, exist_ok=True)
+    subprocess.run([find_nvcc(), *NVCC_FLAGS, "-shared", "-o", str(so), str(src)], check=True,
+                   capture_output=True, text=True, timeout=600)
+    lib = ctypes.CDLL(str(so))
+    for entry in ("tg_upsample2x_fwd", "tg_upsample2x_bwd"):
+        fn = getattr(lib, entry)
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    codes = {torch.float32: (0, 4), torch.bfloat16: (1, 8)}
+
+    def launch(entry, src, dst, small):
+        if src.dim() != 4 or src.dtype not in codes or not src.is_contiguous():
+            raise ValueError(f"{entry}: needs a contiguous NHWC fp32 or bf16 tensor")
+        code, vec = codes[src.dtype]
+        n, h, w, c = small
+        if c % vec or (src.data_ptr() | dst.data_ptr()) % 16:
+            raise ValueError(f"{entry}: needs C % {vec} == 0 and 16-byte aligned tensors")
+        if dst.numel() == 0:
+            return
+        load_library()
+        with torch.cuda.device(src.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            check(getattr(lib, entry)(src.data_ptr(), dst.data_ptr(), n, h, w, c, code, stream),
+                  entry)
+
+    def fwd(x):
+        if torch.is_grad_enabled() and x.requires_grad:
+            raise RuntimeError("the parent's upsample2x_fwd records no gradient")
+        n, h, w, c = x.shape
+        y = torch.empty((n, 2 * h, 2 * w, c), dtype=x.dtype, device=x.device)
+        launch("tg_upsample2x_fwd", x, y, (n, h, w, c))
+        return y
+
+    def bwd(g):
+        n, h2, w2, c = g.shape
+        if h2 % 2 or w2 % 2:
+            raise ValueError(f"the parent's upsample2x_bwd: needs an even size, got {h2}x{w2}")
+        dx = torch.empty((n, h2 // 2, w2 // 2, c), dtype=g.dtype, device=g.device)
+        launch("tg_upsample2x_bwd", g, dx, (n, h2 // 2, w2 // 2, c))
+        return dx
+
+    return {"fwd": fwd, "bwd": bwd}
+
+
+def k1_alternatives(direction: str, src: torch.Tensor, want: torch.Tensor) -> dict:
+    """K1 ``direction`` at src's shape at each tiling plan_upsample could
+    pick: the adjoint's 1 and 2 dx rows a thread (the forward's one pixel),
+    each at tiles of at most 1, 2, 4 and 8 row blocks, through the C
+    entry; each output held bitwise to the wrapper's ``want``; device ms a
+    call by graph replay over copies past the L2, as k1_times."""
+    if direction == "fwd":
+        n, h, w, c = src.shape
+    else:
+        n, h2, w2, c = src.shape
+        h, w = h2 // 2, w2 // 2
+    fn = getattr(load_library(), f"tg_upsample2x_{direction}")
+    calls = graph_calls(bound(0.0, nbytes(src, want))["bound_ms"])
+    srcs = past_l2(src, nbytes(want), calls)
+    times = {}
+    for rows in (1,) if direction == "fwd" else (1, 2):
+        for ht in (1, 2, 4, 8):
+            plan = _tiling(direction, n, h, w, c, src.dtype, rows, ht)
+            if plan.ht < ht:  # cut to the shape or the block: a smaller ht's tiling
+                continue
+            tiles, launches = _launch_args(plan, h, w, c, src.dtype)
+
+            def call(x, tiles=tiles, launches=launches):  # tiles: kept alive for the C entry
+                out = torch.empty_like(want)
+                stream = torch.cuda.current_stream().cuda_stream
+                for src_off, dst_off, args in launches:
+                    check(fn(x.data_ptr() + src_off, out.data_ptr() + dst_off, *args, stream),
+                          "k1_alternatives")
+                return out
+
+            got = call(src)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise RuntimeError(f"K1 {direction} at {plan}: not the wrapper's output "
+                                   f"({(got - want).abs().max().item()})")
+            times[f"rows{rows}_ht{ht}"] = graph_device_ms(rotating(call, srcs), calls)[0]
+    return times
+
+
+def k1_rates(dev, parent_root):
+    """K1 fwd and bwd at the 7 decoder shapes at batch 1, 8 and 32, device
+    ms by graph replay (chip_smoke.k1_times), and with a parent checkout
+    its two kernels in turns (parent, change, change, parent) with the max
+    difference of their outputs from the change's; each change turn's
+    plain version and library call once; the plan's alternatives in fp32
+    and bf16 at SWEEP_BATCHES."""
+    parent = parent_k1(parent_root) if parent_root else None
+    turns = ("parent", "change", "change", "parent") if parent else ("change",)
+    gen = torch.Generator().manual_seed(SEED + 14)
     rows = []
-    for h, c in upsample_shapes(WIDTH):
-        g = torch.randn((K1_BWD_BATCH, 2 * h, 2 * h, c), generator=gen).to(dev)
-        ms = time_ms(lambda: upsample2x_bwd(g))
-        plain = time_ms(lambda: upsample2x_bwd_plain(g))
-        moved = 4 * (g.numel() + g.numel() // 4)  # read g, write dx
-        row = dict(g=f"{K1_BWD_BATCH}x{2 * h}x{2 * h}x{c}", ms=ms, plain_ms=plain,
-                   mbytes=moved / 1e6, gbps=moved / ms / 1e6, plain_gbps=moved / plain / 1e6,
-                   **bound(40.0 * g.numel() / 4, moved))
-        line("k1_bwd", **{k: f"{v:.4f}" if isinstance(v, float) else v for k, v in row.items()})
-        rows.append(row)
-    return rows + [total("k1_bwd", "g", rows)]
+    for batch in K1_BATCHES:
+        empty = graph_device_ms(lambda: empty_launch(dev))[0]
+        for h, c in upsample_shapes(WIDTH):
+            for direction in ("fwd", "bwd"):
+                side = h if direction == "fwd" else 2 * h
+                src = torch.randn((batch, side, side, c), generator=gen).to(dev)
+                port = upsample2x_fwd if direction == "fwd" else upsample2x_bwd
+                want = port(src)
+                plan = plan_upsample(direction, batch, h, h, c, src.dtype)
+                extra = dict(rows=plan.rows, rt=plan.rt, ht=plan.ht, launches=len(plan.chunks))
+                if parent:
+                    extra["parent_max_abs_diff"] = (parent[direction](src) - want).abs().max().item()
+                for turn_no, turn in enumerate(turns):
+                    r = k1_times(direction, src, kernel=parent[direction] if turn == "parent" else None,
+                                 yardsticks=turn_no == 1 or not parent)
+                    row = dict(batch=batch, direction=direction, shape="x".join(map(str, src.shape)),
+                               turn_no=turn_no, turn=turn, empty_ms=empty, **extra, **r)
+                    k1_line("k1", batch, row["shape"], r, empty, direction=direction, turn=turn,
+                            **extra)
+                    rows.append(row)
+                for x in (src, src.bfloat16()) if batch in SWEEP_BATCHES else ():
+                    alt = k1_alternatives(direction, x, port(x))
+                    p = plan_upsample(direction, batch, h, h, c, x.dtype)
+                    planned, best = f"rows{p.rows}_ht{p.ht}", min(alt, key=alt.get)
+                    shape, dtype = "x".join(map(str, src.shape)), str(x.dtype).split(".")[-1]
+                    line("k1_plan", batch=batch, direction=direction, shape=shape, dtype=dtype,
+                         planned=planned, best=best, best_ms=f"{alt[best]:.5f}",
+                         **{k: f"{v:.5f}" for k, v in alt.items()})
+                    rows.append(dict(batch=batch, direction=direction, shape=shape, dtype=dtype,
+                                     planned=planned, alternatives=alt))
+                del src, want
+        for direction in ("fwd", "bwd"):
+            for turn_no, turn in enumerate(turns):
+                rs = [r for r in rows if r.get("turn_no") == turn_no and r["batch"] == batch
+                      and r["direction"] == direction]
+                t = dict(ms=sum(r["ms"] for r in rs), bound_ms=sum(r["bound_ms"] for r in rs),
+                         host_ms=sum(r["host_ms"] for r in rs), call_ms=sum(r["call_ms"] for r in rs))
+                if turn_no == 1 or not parent:
+                    t.update(plain_ms=sum(r["plain_ms"] for r in rs),
+                             library_ms=sum(r["library_ms"] for r in rs))
+                line("k1_total", batch=batch, direction=direction, turn=turn, shapes=len(rs),
+                     **{k: f"{v:.5f}" for k, v in t.items()})
+                rows.append(dict(batch=batch, direction=direction, turn_no=turn_no, turn=turn,
+                                 total=True, **t))
+    return rows
 
 
 def parent_probes(root: Path):
@@ -514,7 +670,8 @@ def main() -> None:
     ap.add_argument("--legs", default=",".join(LEGS),
                     help=f"comma-separated legs to run, of {','.join(LEGS)}")
     ap.add_argument("--parent", type=Path, default=None,
-                    help="probes leg: a parent checkout whose P2 and P4 run in turns")
+                    help="probes and k1 legs: a parent checkout whose P2 and P4, and K1, "
+                         "run in turns")
     args = ap.parse_args()
     legs = set(args.legs.split(","))
     if not legs <= set(LEGS):
@@ -543,8 +700,9 @@ def main() -> None:
         result.update(
             train=train_rates(dev, imgs, masks),
             train_trace=train_trace(dev, imgs, masks, args.out),
-            k1_bwd=k1_bwd_rates(dev),
         )
+    if "k1" in legs:
+        result["k1"] = k1_rates(dev, args.parent)
     if "probes" in legs:
         result["probes"] = probe_rates(dev, args.parent)
     args.out.write_text(json.dumps(result, indent=1))

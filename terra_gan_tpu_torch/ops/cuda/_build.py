@@ -117,9 +117,10 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.tg_pack_tf32_planes.restype = _I
     lib.tg_pack_tf32_planes.argtypes = [_P] * 6 + [_I, _P]
     lib.tg_upsample2x_fwd.restype = _I
-    lib.tg_upsample2x_fwd.argtypes = [_P, _P] + [_I] * 5 + [_P]
+    # N, H, W, C, dtype, the plan's tiles (a struct) and grid
+    lib.tg_upsample2x_fwd.argtypes = [_P, _P] + [_I] * 5 + [_P, _I, _P]
     lib.tg_upsample2x_bwd.restype = _I
-    lib.tg_upsample2x_bwd.argtypes = [_P, _P] + [_I] * 5 + [_P]
+    lib.tg_upsample2x_bwd.argtypes = [_P, _P] + [_I] * 5 + [_P, _I, _P]
     lib.tg_decoder_tail_f32.restype = _I
     lib.tg_decoder_tail_f32.argtypes = [_P] * 12 + [_I] * 4 + [_P]
     lib.tg_decoder_tail_info.restype = _I

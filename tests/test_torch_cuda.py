@@ -352,6 +352,156 @@ def test_upsample_backward_takes_a_strided_gradient(card):
         upsample2x_bwd(torch.zeros((1, 8, 8, 6), device=card))
 
 
+K1_BWD_REL_TOL = 1e-6  # of max|plain|: fp32 taps in another order, atomics in torch's
+ADJOINT_TOL = 1e-6     # |<Ux,g> - <x,U^T g>| over sum|Ux * g|: fp32 rounding of both sides
+# odd spatial sizes (N, H, W, C) at C >= 16, where torch takes its channels-last kernel
+ODD_UPSAMPLE_SHAPES = [(1, 1, 1, 16), (2, 3, 5, 16), (1, 7, 9, 64), (3, 2, 33, 32), (1, 17, 3, 128)]
+
+
+def bf16_ulp(v: torch.Tensor) -> torch.Tensor:
+    """One bf16 ulp at each value's magnitude (8 bits of mantissa)."""
+    return torch.pow(2.0, torch.floor(torch.log2(v.abs().clamp_min(2.0 ** -126))) - 7)
+
+
+@pytest.mark.parametrize("batch", [1, 2, 8])
+def test_upsample_forward_gives_torchs_bits_at_every_decoder_batch(card, batch):
+    gen = torch.Generator().manual_seed(10 + batch)
+    for h, c in DECODER_SHAPES:
+        x = torch.randn((batch, h, h, c), generator=gen).to(card)
+        assert torch.equal(upsample2x_fwd(x), upsample2x_fwd_plain(x)), (batch, h, c)
+
+
+@pytest.mark.parametrize("shape", ODD_UPSAMPLE_SHAPES)
+def test_upsample_forward_gives_torchs_bits_at_odd_sizes(card, shape):
+    x = torch.randn(shape, generator=torch.Generator().manual_seed(sum(shape))).to(card)
+    assert torch.equal(upsample2x_fwd(x), upsample2x_fwd_plain(x))
+
+
+@pytest.mark.parametrize("direction", ["fwd", "bwd"])
+def test_upsample_bf16_within_one_ulp_at_decoder_shapes(card, direction):
+    """bf16 storage, fp32 taps, one rounding: within 1 ulp of the fp32
+    result of the same bf16 inputs (positive data: no cancellation)."""
+    gen = torch.Generator().manual_seed(20)
+    for h, c in DECODER_SHAPES:
+        side = h if direction == "fwd" else 2 * h
+        x = torch.rand((2, side, side, c), generator=gen).to(card, torch.bfloat16)
+        kernel, plain = ((upsample2x_fwd, upsample2x_fwd_plain) if direction == "fwd"
+                         else (upsample2x_bwd, upsample2x_bwd_plain))
+        got, want = kernel(x), plain(x.float())
+        assert got.dtype == torch.bfloat16
+        assert ((got.float() - want).abs() <= bf16_ulp(want)).all().item(), (direction, h, c)
+
+
+@pytest.mark.parametrize("value", [float("inf"), float("-inf"), float("nan")])
+def test_upsample_forward_propagates_inf_and_nan_at_the_borders_as_torch(card, value):
+    """The border's zero-weight taps are multiplied as torch multiplies
+    them: an inf or NaN in the first or last row or column reaches the
+    outputs it reaches in torch, NaN for NaN."""
+    for shape in [(2, 8, 8, 16), (1, 5, 7, 64), (1, 2, 3, 16), (1, 1, 4, 16)]:
+        n, h, w, c = shape
+        for where in [(0, slice(None)), (h - 1, slice(None)), (slice(None), 0),
+                      (slice(None), w - 1), (0, 0), (h - 1, w - 1)]:
+            x = torch.rand(shape, generator=torch.Generator().manual_seed(3)).to(card)
+            x[(0, *where, slice(0, c, 3))] = value
+            torch.testing.assert_close(upsample2x_fwd(x), upsample2x_fwd_plain(x), rtol=0, atol=0,
+                                       equal_nan=True)
+
+
+@pytest.mark.parametrize("shape", [(2, h, h, c) for h, c in DECODER_SHAPES] + ODD_UPSAMPLE_SHAPES)
+def test_upsample_backward_matches_torch_and_is_the_adjoint(card, shape):
+    n, h, w, c = shape
+    gen = torch.Generator().manual_seed(sum(shape) + 5)
+    g = torch.randn((n, 2 * h, 2 * w, c), generator=gen).to(card)
+    x = torch.randn(shape, generator=gen).to(card)
+    got, want = upsample2x_bwd(g), upsample2x_bwd_plain(g)
+    assert got.shape == shape
+    assert (got - want).abs().max().item() <= K1_BWD_REL_TOL * want.abs().max().item()
+    prod = upsample2x_fwd(x).double() * g.double()
+    adj = abs(prod.sum().item() - (x.double() * got.double()).sum().item()) / prod.abs().sum().item()
+    assert adj <= ADJOINT_TOL
+
+
+@pytest.mark.parametrize("direction", ["fwd", "bwd"])
+def test_upsample_splits_a_batch_beyond_int_range(card, direction):
+    """Batch 128 of the 256^2 x 64 decoder input: 2^31 or more elements on
+    the 2x side, so the plan's two launches, each within 32-bit indices."""
+    from terra_gan_tpu_torch.ops.cuda.upsample_kernel import plan_upsample
+
+    n, h, c = 128, 256, 64
+    assert len(plan_upsample(direction, n, h, h, c, torch.float32).chunks) == 2
+    side = h if direction == "fwd" else 2 * h
+    src = torch.randn((n, side, side, c), generator=torch.Generator().manual_seed(6)).to(card)
+    kernel, plain = ((upsample2x_fwd, upsample2x_fwd_plain) if direction == "fwd"
+                     else (upsample2x_bwd, upsample2x_bwd_plain))
+    before = kernel.launches
+    got = kernel(src)
+    assert kernel.launches - before == 2
+    # torch's own kernels stop at 2^31 elements: the plain version by halves
+    want = torch.cat([plain(src[: n // 2]), plain(src[n // 2 :])])
+    if direction == "fwd":
+        assert torch.equal(got, want)
+    else:
+        assert (got - want).abs().max().item() <= K1_BWD_REL_TOL * want.abs().max().item()
+
+
+@pytest.mark.parametrize("direction", ["fwd", "bwd"])
+def test_upsample_takes_more_channel_groups_than_a_block(card, direction):
+    """C = 2048 in fp32 is 512 groups of 4, two slices of a block's 256
+    threads (the decoder's widest upsample at base width 256)."""
+    from terra_gan_tpu_torch.ops.cuda.upsample_kernel import plan_upsample
+
+    n, h, w, c = 2, 6, 5, 2048
+    assert plan_upsample(direction, n, h, w, c, torch.float32).slices == 2
+    gen = torch.Generator().manual_seed(8)
+    if direction == "fwd":
+        x = torch.randn((n, h, w, c), generator=gen).to(card)
+        assert torch.equal(upsample2x_fwd(x), upsample2x_fwd_plain(x))
+    else:
+        g = torch.randn((n, 2 * h, 2 * w, c), generator=gen).to(card)
+        got, want = upsample2x_bwd(g), upsample2x_bwd_plain(g)
+        assert got.shape == (n, h, w, c)
+        assert (got - want).abs().max().item() <= K1_BWD_REL_TOL * want.abs().max().item()
+
+
+def graph_kernel_nodes(graph) -> int:
+    """The kernel nodes of a captured, kept CUDA graph (libcuda)."""
+    import ctypes
+
+    cuda = ctypes.CDLL("libcuda.so.1")
+    cuda.cuGraphGetNodes.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                     ctypes.POINTER(ctypes.c_size_t)]
+    cuda.cuGraphNodeGetType.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
+    raw, n = ctypes.c_void_p(graph.raw_cuda_graph()), ctypes.c_size_t(0)
+    assert cuda.cuGraphGetNodes(raw, None, ctypes.byref(n)) == 0
+    nodes = (ctypes.c_void_p * n.value)()
+    assert cuda.cuGraphGetNodes(raw, nodes, ctypes.byref(n)) == 0
+    kind, kernels = ctypes.c_int(), 0
+    for node in nodes:
+        assert cuda.cuGraphNodeGetType(node, ctypes.byref(kind)) == 0
+        kernels += kind.value == 0  # CU_GRAPH_NODE_TYPE_KERNEL
+    return kernels
+
+
+@pytest.mark.parametrize("direction", ["fwd", "bwd"])
+def test_upsample_call_is_one_kernel_node_in_a_graph(card, direction):
+    kernel = upsample2x_fwd if direction == "fwd" else upsample2x_bwd
+    src = torch.rand((8, 64, 64, 256) if direction == "fwd" else (8, 128, 128, 256), device=card)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        kernel(src)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        out = kernel(src)
+    assert graph_kernel_nodes(graph) == 1
+    graph.instantiate()
+    out.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, kernel(src))
+
+
 def test_train_step_kernel_path_matches_plain_path(card):
     gen = torch.Generator().manual_seed(4)
     state = GANTrainState.create(init_generator(16, gen, card), init_discriminator(16, gen, card))
