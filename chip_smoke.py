@@ -9,9 +9,10 @@ Phases, one line of figures each (any failure raises and exits nonzero):
      and the tensor-core instructions (HMMA, HGMMA) in its SASS
      (cuobjdump -sass); K2's and K3's MMA kernels must have some, and no
      K2 or K3 kernel may spill; K3's dynamic shared memory and the blocks
-     an SM holds; P2's and P4's 14 kernels (6 lane counts x 2 variants,
-     2 variants) and K1's 6 (fwd in fp32 and bf16, bwd in each at 1 and
-     2 rows a thread) must not spill either;
+     an SM holds; P1's, P2's and P4's 14 kernels (P1 and P2 share 6 lane
+     counts x 2 variants, P4 2 variants), P3's 2 (vec4 and scalar, at
+     most 64 registers) and K1's 6 (fwd in fp32 and bf16, bwd in each at
+     1 and 2 rows a thread) must not spill either;
   3. K2 fused_pconv_eval against its plain version at the 14 stage
      geometries of the full-width (base_width=64) 512^2 PConvUNet, batch 2,
      with the stage's weight planes packed once: per stage its variant
@@ -70,11 +71,13 @@ Phases, one line of figures each (any failure raises and exits nonzero):
      unfused tail, and 1 K3, 13 K2 and 6 K1 launches a forward;
  12. probes: the five probe kernels P1-P5 (csrc/probes.cu) against their
      plain versions at scripts/probe_mosaic.py's shapes and seed (P4 and
-     P5 equal, P1-P3 within 1e-6 of max|plain|), P2 and P4 in each of
+     P5 equal, P1-P3 within 1e-6 of max|plain|), P1-P4 in each of
      their two variants (vec4 and scalar, forced through plan_probe) and
      as planned on a view at a 4-byte offset (scalar), and against numpy
-     as cli/probe_cuda.py prints it. Times: each kernel, its plain
-     version, its library call and an empty launch on the device by
+     as cli/probe_cuda.py prints it. Times: each kernel (and each
+     variant), its plain version, its library call (P3 has none; beside
+     it torch.matmul on the pre-built [a, 2a], the product alone) and an
+     empty launch on the device by
      graph replay (graph_device_ms: 1000 calls captured in one CUDA
      graph, which must hold one kernel node a probe call, the median of
      5 timed replays over 1000), beside the per-call CUDA-event time
@@ -96,7 +99,7 @@ the tensor cores, or for K2's MMA stages and K3's dec1 495 TFLOP/s of
 dense TF32 over the 3 TF32 products of each fp32 product; a probe's ms,
 plain_ms and library_ms are device times a launch by graph replay, K1's
 the same summed over its 7 shapes at batch 2 (and at 8, and the largest
-shape, beside them), and K2's, P2's and P4's launches are also given by
+shape, beside them), and K2's and P1-P4's launches are also given by
 variant), and last
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Without CUDA it exits nonzero before printing any result.
@@ -410,11 +413,21 @@ def phase_build():
     require(len(k3) == 1 and all(r.get("hmma", 0) > 0 for r in k3.values()),
             f"build: K3 shows no tensor-core instructions: {k3}")
     require(all(r.get("spill_bytes") == 0 for r in k3.values()), f"build: K3 spills: {k3}")
-    # P2's 6 lane counts and P4, each in two variants
+    # P1's and P2's 6 lane counts (one kernel for both) and P4, each in two variants
     p2p4 = {fn: r for fn, r in report.items()
             if "matvec_dot_kernel" in fn or "mask_broadcast_kernel" in fn}
     require(len(p2p4) == 14 and all(r.get("spill_bytes") == 0 for r in p2p4.values()),
-            f"build: P2's and P4's kernels are not 14 without spills: {p2p4}")
+            f"build: P1's, P2's and P4's kernels are not 14 without spills: {p2p4}")
+    p3 = {fn: r for fn, r in report.items() if "lane_concat_dot_kernel" in fn}
+    for fn, r in sorted(p2p4.items()):
+        if "matvec_dot_kernel" in fn:
+            line("build", p1_kernel=fn, registers=r.get("registers"),
+                 spill_bytes=r.get("spill_bytes"))
+    for fn, r in sorted(p3.items()):
+        line("build", p3_kernel=fn, registers=r.get("registers"), spill_bytes=r.get("spill_bytes"))
+    require(len(p3) == 2 and all(r.get("spill_bytes") == 0 and r.get("registers", 255) <= 64
+                                 for r in p3.values()),
+            f"build: P3's kernels are not 2 within 64 registers without spills: {p3}")
     # K1: the forward in fp32 and bf16, the adjoint in each at 1 and 2 dx rows a thread
     k1 = {fn: r for fn, r in report.items() if "upsample2x_" in fn and "_kernel" in fn}
     for fn, r in sorted(k1.items()):
@@ -1372,9 +1385,10 @@ def timed_on_device(what: str, fn, kernels=None, launches: int = GRAPH_LAUNCHES)
 
 def phase_probes(dev):
     """P1-P5 against their plain versions at probe_mosaic's shapes and seed
-    (P2 and P4 in each variant), then against numpy as probe_cuda prints
+    (P1-P4 in each variant), then against numpy as probe_cuda prints
     it; device times per launch by graph replay beside an empty launch's
-    and the library call's."""
+    and the library call's (P3's: the product alone, torch.matmul on the
+    pre-built [a, 2a], since no one call takes a and k2)."""
     libraries = {"probe_lane_reduce": torch.matmul, "probe_matvec_dot": torch.matmul,
                  "probe_mask_broadcast": lambda a, m: a * m[..., None]}
     empty = timed_on_device("the empty launch", lambda: empty_launch(dev), kernels=1)
@@ -1390,6 +1404,11 @@ def phase_probes(dev):
         t_k = timed_on_device(name, lambda: fn(*args), kernels=1)
         t_p = timed_on_device(f"{name}'s plain version", lambda: PLAIN[fn](*args))
         t_l = timed_on_device(f"{name}'s library call", lambda: library(*args)) if library else None
+        t_prod = None
+        if name == "probe_lane_concat_dot":
+            cat = torch.cat([args[0], args[0] * 2.0], -1)
+            t_prod = timed_on_device(f"{name}'s product alone",
+                                     lambda: torch.matmul(cat, args[1]))
         t_call = time_ms(lambda: fn(*args))
         t_prof = device_ms(lambda: fn(*args))
         t_lprof = device_ms(lambda: library(*args)) if library else None
@@ -1397,6 +1416,9 @@ def phase_probes(dev):
                    library_ms=t_l, empty_ms=empty, call_ms=t_call,
                    device_ms="unresolved" if t_prof is None else t_prof,
                    library_device_ms="unresolved" if t_lprof is None else t_lprof)
+        if t_prod is not None:
+            fig.update(product_alone_ms=t_prod,
+                       product_alone="torch.matmul on the pre-built [a, 2a] (the concat outside)")
         variants = {}
         if hasattr(fn, "variants"):
             for v in VARIANTS:  # forced through the planner at the script's shapes
@@ -1416,6 +1438,7 @@ def phase_probes(dev):
              rel=f"{err / max(want.abs().max().item(), 1e-30):.3e}",
              device_ms=f"{t_k:.5f}", plain_device_ms=f"{t_p:.5f}",
              library_device_ms="none" if t_l is None else f"{t_l:.5f}",
+             **({} if t_prod is None else {"product_alone_matmul_device_ms": f"{t_prod:.5f}"}),
              empty_device_ms=f"{empty:.5f}", call_ms=f"{t_call:.4f}",
              profiler_ms=ms_text(t_prof),
              library_profiler_ms="none" if library is None else ms_text(t_lprof),

@@ -50,17 +50,23 @@ the card) measures
   9. a torch.profiler trace of 3 steps at batch 8: busy time, idle
      share, device time by kernel name and K1 backward's share.
 
-The probes leg times P2 and P4 (csrc/probes.cu) at scripts/probe_mosaic.py's
+The probes leg times P1-P4 (csrc/probes.cu) at scripts/probe_mosaic.py's
 shapes, as chip_smoke.py's probes phase does (graph_device_ms: 1000
 calls in one CUDA graph, the median of 5 timed replays over 1000):
 
  11. each variant of each (vec4, scalar), the library call for the same
-     function (torch.matmul, a * m[..., None]) and an empty launch, and
-     with --parent DIR (a checkout of the parent commit, e.g. unpacked
-     by git archive into build/parent/) the parent's two kernels, built
-     alone from DIR's csrc/probes.cu and called through its own C
-     signatures, in turns parent, change, change, parent; every version
-     held against the plain version (P4 equal, P2 within 1e-6 of max).
+     function (torch.matmul for P1 and P2, a * m[..., None] for P4; for
+     P3, which has none, torch.matmul on the pre-built [a, 2a], the
+     product alone) and an empty launch, and with --parent DIR (a
+     checkout of the parent commit, e.g. unpacked by git archive into
+     build/parent/) the parent's P1 and P3, built alone from DIR's
+     csrc/probes.cu and called through their own C signatures, in turns
+     parent, change, change, parent; every version held against the
+     plain version (P4 equal, P1-P3 within 1e-6 of max); then P3 at
+     every tiling its C entry takes at that shape (rows and columns a
+     block, K in one stage or in chunks of 32), through the C entry
+     directly, beside the bytes its tiles copy into the busiest SM; and
+     P3 as planned at K from 4 to 128 and M from 128 to 4096 (P3_SCALING).
 
 The k1 leg times K1 fwd and bwd (csrc/upsample2x.cu) at the 7 decoder
 shapes at batch 1, 2, 8 and 32, as chip_smoke.py's k1 phases do
@@ -111,7 +117,9 @@ from chip_smoke import (
 from terra_gan_tpu_torch.cli.probe_cuda import probe_inputs
 from terra_gan_tpu_torch.ops.cuda._build import BUILD_ROOT, NVCC_FLAGS, check, find_nvcc
 from terra_gan_tpu_torch.ops.cuda.probe_kernels import (
-    PLAIN, VARIANTS, empty_launch, probe_mask_broadcast, probe_matvec_dot,
+    CONCAT_ROWS, CONCAT_SMEM_BUDGET, CONCAT_THREADS, PLAIN, VARIANTS, concat_busiest_sm_bytes,
+    concat_smem_bytes, empty_launch, plan_probe, probe_lane_concat_dot, probe_lane_reduce,
+    probe_mask_broadcast, probe_matvec_dot,
 )
 from terra_gan_tpu_torch.evaluation.inference import OUTPUT_SIZE
 from terra_gan_tpu_torch.models.generator import STAGES
@@ -607,9 +615,10 @@ def k1_rates(dev, parent_root):
 
 
 def parent_probes(root: Path):
-    """P2 and P4 of a parent checkout at ``root``: its csrc/probes.cu built
+    """P1 and P3 of a parent checkout at ``root``: its csrc/probes.cu built
     alone with the port's nvcc flags into build/parent_probes/, each bound
-    with the parent's C signature (a, k or m, out, n, c, stream)."""
+    with the parent's C signature: (a, k, out, n, c, stream) for P1 and
+    (a, k2, out, m, c, n, stream) for P3."""
     src = root / "terra_gan_tpu_torch" / "csrc" / "probes.cu"
     so = BUILD_ROOT.parent / "parent_probes" / "libparent_probes.so"
     so.parent.mkdir(parents=True, exist_ok=True)
@@ -617,28 +626,113 @@ def parent_probes(root: Path):
                    capture_output=True, text=True, timeout=600)
     lib = ctypes.CDLL(str(so))
 
-    def bind(entry, shape):
+    def bind(entry, n_int, shape, sizes):
         fn = getattr(lib, entry)
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * n_int + [ctypes.c_void_p]
 
         def call(a, other):
-            out = torch.empty(shape(a), device=a.device)
-            c = a.shape[-1]
-            check(fn(a.data_ptr(), other.data_ptr(), out.data_ptr(), a.numel() // c, c,
+            out = torch.empty(shape(a, other), device=a.device)
+            check(fn(a.data_ptr(), other.data_ptr(), out.data_ptr(), *sizes(a, other),
                      torch.cuda.current_stream().cuda_stream), entry)
             return out
         return call
 
-    return {"probe_matvec_dot": bind("tg_probe_matvec_dot", lambda a: a.shape[:-1]),
-            "probe_mask_broadcast": bind("tg_probe_mask_broadcast", lambda a: a.shape)}
+    def rows(a):
+        return a.numel() // a.shape[-1]
+
+    return {"probe_lane_reduce": bind("tg_probe_lane_reduce", 2, lambda a, k: a.shape[:-1],
+                                      lambda a, k: (rows(a), a.shape[-1])),
+            "probe_lane_concat_dot": bind(
+                "tg_probe_lane_concat_dot", 3, lambda a, k2: (*a.shape[:-1], k2.shape[1]),
+                lambda a, k2: (rows(a), a.shape[-1], k2.shape[1]))}
+
+
+def p3_tilings(a: torch.Tensor, k2: torch.Tensor, empty: float) -> list:
+    """P3 at a and k2 at each tiling the C entry takes for them (R rows of
+    CONCAT_ROWS by 4 BQ columns, BQ up to the least that covers N, at most
+    CONCAT_THREADS threads; K in one stage or in chunks of 32 columns of a,
+    double-buffered), vec4, through the C entry; each output held to the
+    plain version; device ms a call by graph replay beside the bytes the
+    tiles copy into the busiest SM (plan_probe's measure)."""
+    lib = load_library()
+    m, c, n = a.numel() // a.shape[-1], a.shape[-1], k2.shape[1]
+    plan = plan_probe("probe_lane_concat_dot", a, k2)
+    want = PLAIN[probe_lane_concat_dot](a, k2)
+    rows_out = []
+    for rows in CONCAT_ROWS:
+        for bq in (1, 2, 4, 8, 16):
+            if 2 * rows * bq > CONCAT_THREADS or (bq > 1 and 2 * bq >= n):
+                continue
+            for kchunk in (c, 32):
+                if concat_smem_bytes(rows, bq, -(-kchunk // 4) * 4,
+                                     1 if kchunk == c else 2) > CONCAT_SMEM_BUDGET:
+                    continue  # the C entry refuses it
+                grid, block = -(-m // rows) * -(-n // (4 * bq)), 2 * rows * bq
+
+                def call(rows=rows, kchunk=kchunk, grid=grid, block=block):
+                    out = torch.empty((*a.shape[:-1], n), device=a.device)
+                    check(lib.tg_probe_lane_concat_dot(
+                        a.data_ptr(), k2.data_ptr(), out.data_ptr(), m, c, n,
+                        VARIANTS.index("vec4"), grid, block, rows, kchunk,
+                        torch.cuda.current_stream().cuda_stream), "p3_tilings")
+                    return out
+
+                err = probe_check("probe_lane_concat_dot", call(), want,
+                                  f" rows {rows} bq {bq} kchunk {kchunk}")
+                ms, kernels = graph_device_ms(call)
+                row = dict(probe="probe_lane_concat_dot", rows=rows, bq=bq, kchunk=kchunk,
+                           grid=grid, block=block,
+                           busiest_sm_bytes=concat_busiest_sm_bytes(m, c, n, rows, bq),
+                           planned=(grid, block, rows, kchunk) == tuple(plan[1:]),
+                           device_ms=ms, kernels_per_call=kernels, empty_device_ms=empty,
+                           max_abs_err=err)
+                line("p3_tiling", **{k: f"{v:.6f}" if isinstance(v, float) else v
+                                     for k, v in row.items()})
+                rows_out.append(row)
+    return rows_out
+
+
+# (M, C, N) of P3 beside the probe's (1024, 64, 64): K from 4 to 128 at
+# M = 1024, then M from 128 to 4096 at C = N = 64
+P3_SCALING = ((1024, 4, 64), (1024, 16, 64), (1024, 32, 64), (1024, 64, 64), (1024, 128, 64),
+              (128, 64, 64), (256, 64, 64), (512, 64, 64), (2048, 64, 64), (4096, 64, 64))
+
+
+def p3_scaling(dev, empty: float) -> list:
+    """P3 as planned at the shapes of P3_SCALING (seeded uniform inputs):
+    device ms by graph replay beside the plan and the empty launch, each
+    output held to the plain version. Which part of P3's time follows K
+    (the sums and the copies of k2) and which follows M (the blocks)."""
+    g = torch.Generator().manual_seed(SEED)
+    rows_out = []
+    for m, c, n in P3_SCALING:
+        a = torch.rand((m, c), generator=g).to(dev)
+        k2 = torch.rand((2 * c, n), generator=g).to(dev)
+        err = probe_check("probe_lane_concat_dot", probe_lane_concat_dot(a, k2),
+                          PLAIN[probe_lane_concat_dot](a, k2), f" at {m}x{c}x{n}")
+        ms, kernels = graph_device_ms(lambda: probe_lane_concat_dot(a, k2))
+        variant, grid, block, rows, kchunk = plan_probe("probe_lane_concat_dot", a, k2)
+        row = dict(probe="probe_lane_concat_dot", m=m, c=c, n=n, variant=variant, grid=grid,
+                   block=block, rows=rows, kchunk=kchunk, device_ms=ms,
+                   kernels_per_call=kernels, empty_device_ms=empty, max_abs_err=err)
+        line("p3_scaling", **{k: f"{v:.6f}" if isinstance(v, float) else v
+                              for k, v in row.items()})
+        rows_out.append(row)
+    return rows_out
 
 
 def probe_rates(dev, parent_root):
-    """P2 and P4 at the script's shapes: each variant, the library call and an
-    empty launch, and the parent's kernels in turns, by graph replay."""
-    a, k1, _, m = (torch.from_numpy(x).to(dev) for x in probe_inputs())
-    cases = {"probe_matvec_dot": (probe_matvec_dot, (a, k1[:, None]), torch.matmul),
+    """P1-P4 at the script's shapes: each variant, the library call (P3's:
+    the product alone) and an empty launch, and the parent's P1 and P3 in
+    turns, by graph replay."""
+    a, k1, k2, m = (torch.from_numpy(x).to(dev) for x in probe_inputs())
+    k2 = torch.cat([k2, k2])
+    cat = torch.cat([a, a * 2.0], -1)  # P3's product alone takes the concat built
+    cases = {"probe_lane_reduce": (probe_lane_reduce, (a, k1), torch.matmul),
+             "probe_matvec_dot": (probe_matvec_dot, (a, k1[:, None]), torch.matmul),
+             "probe_lane_concat_dot": (probe_lane_concat_dot, (a, k2),
+                                       lambda a, k2: torch.matmul(cat, k2)),
              "probe_mask_broadcast": (probe_mask_broadcast, (a, m),
                                       lambda a, m: a * m[..., None])}
     parent = parent_probes(parent_root) if parent_root else None
@@ -648,6 +742,8 @@ def probe_rates(dev, parent_root):
         empty = graph_device_ms(lambda: empty_launch(dev))[0]
         for name, (wrapper, args, library) in cases.items():
             if turn == "parent":
+                if name not in parent:
+                    continue
                 versions = {"parent": lambda: parent[name](*args)}
             else:
                 versions = {v: (lambda v=v: wrapper(*args, variant=v)) for v in VARIANTS}
@@ -657,10 +753,13 @@ def probe_rates(dev, parent_root):
                 ms, kernels = graph_device_ms(fn)
                 row = dict(run=run, turn=turn, probe=name, version=version, device_ms=ms,
                            kernels_per_call=kernels, library_device_ms=lib_ms,
-                           empty_device_ms=empty, max_abs_err=err)
+                           library="product alone" if wrapper is probe_lane_concat_dot
+                           else "one call", empty_device_ms=empty, max_abs_err=err)
                 line("probes", **{k: f"{v:.6f}" if isinstance(v, float) else v
                                   for k, v in row.items()})
                 rows.append(row)
+    rows.extend(p3_tilings(a, k2, empty))
+    rows.extend(p3_scaling(dev, empty))
     return rows
 
 
@@ -670,7 +769,7 @@ def main() -> None:
     ap.add_argument("--legs", default=",".join(LEGS),
                     help=f"comma-separated legs to run, of {','.join(LEGS)}")
     ap.add_argument("--parent", type=Path, default=None,
-                    help="probes and k1 legs: a parent checkout whose P2 and P4, and K1, "
+                    help="probes and k1 legs: a parent checkout whose P1 and P3, and K1, "
                          "run in turns")
     args = ap.parse_args()
     legs = set(args.legs.split(","))

@@ -1,5 +1,6 @@
 // Tensor-core and copy helpers shared by K2 (pconv_eval.cu) and K3
-// (decoder_tail.cu): 16-byte cp.async copies, the TF32 rounding both
+// (decoder_tail.cu): 16-byte cp.async copies (P3 in probes.cu takes them
+// too), the TF32 rounding both
 // kernels split fp32 operands with, and mma.sync m16n8k8 in TF32.
 //
 // 3xTF32: an fp32 value v is split into hi = tf32(v) and lo = tf32(v - hi)

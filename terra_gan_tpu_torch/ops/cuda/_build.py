@@ -125,9 +125,10 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.tg_decoder_tail_f32.argtypes = [_P] * 12 + [_I] * 4 + [_P]
     lib.tg_decoder_tail_info.restype = _I
     lib.tg_decoder_tail_info.argtypes = [_P] * 4
-    # P2 and P4 take n, c and the plan's variant, grid and block
-    for name, n_ptr, n_int in (("lane_reduce", 3, 2), ("matvec_dot", 3, 5),
-                               ("lane_concat_dot", 3, 3), ("mask_broadcast", 3, 5),
+    # P1, P2 and P4 take n, c and the plan's variant, grid and block; P3
+    # m, c, n and the plan's variant, grid, block, rows and K chunk
+    for name, n_ptr, n_int in (("lane_reduce", 3, 5), ("matvec_dot", 3, 5),
+                               ("lane_concat_dot", 3, 8), ("mask_broadcast", 3, 5),
                                ("row_build", 2, 2), ("empty", 0, 0)):
         fn = getattr(lib, f"tg_probe_{name}")
         fn.restype = _I

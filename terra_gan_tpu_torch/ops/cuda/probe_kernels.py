@@ -8,11 +8,20 @@ flattened; the kernels are ``csrc/probes.cu`` (fp32 SIMT, launch-bound at
 the probes' 256 KiB; the source note there gives each design).
 ``empty_launch`` launches an empty kernel: the floor under their times.
 
-P2 and P4 have two variants each, ``vec4`` (16-byte loads; C % 4 == 0 and
-16-byte aligned inputs) and ``scalar`` (any C and alignment);
-``plan_probe`` picks the variant, grid and block from the tensors alone,
-and a wrapper's ``variant=`` forces one. Their ``.variants`` count the
-launches by variant.
+P1 runs P2's kernel (L lanes a row, float4 loads, an xor-shuffle tree):
+its k [C] is the memory of P2's k [C, 1]. P3 takes R rows by BN columns a
+block (those that copy the fewest bytes into the busiest SM), stages the
+rows of a and the two halves of k2 those columns need in shared memory
+in one load round (K in chunks, double-buffered, where a stage passes 48
+KB), builds the 2a half from the a in registers, and sums each output as
+lo (the a half, one group of threads) + hi (the 2a half, another).
+
+P1-P4 have two variants each, ``vec4`` (16-byte loads; C % 4 == 0 and
+16-byte aligned inputs, for P3 also N % 4 == 0) and ``scalar`` (any C,
+N and alignment); ``plan_probe`` picks the variant, the grid and the
+block (and P3's rows a block and K chunk) from the tensors alone, and a
+wrapper's ``variant=`` forces one. Their ``.variants`` count the launches
+by variant.
 
 Each wrapper takes its plain version only for tensors on the CPU; for
 CUDA tensors it launches its kernel or raises, and counts the launch in
@@ -26,12 +35,24 @@ import torch
 from ._build import check, load_library
 
 _INT_MAX = 2**31 - 1
-# P2's and P4's variants, numbered as the C entry points take them
+# the probes' variants, numbered as the C entry points take them
 VARIANTS = ("scalar", "vec4")
-PROBE_THREADS = 128  # P2's and P4's block
-# the most blocks P2 and P4 launch: 16 of 128 threads fill an SM's 2048
-# threads on the 132 SMs of an H100; a grid-stride loop takes the rest
-MAX_PROBE_BLOCKS = 132 * 16
+PROBE_THREADS = 128  # P1's, P2's and P4's block
+# the SMs of an H100; the most blocks P1, P2 and P4 launch: 16 of 128
+# threads fill an SM's 2048 threads (a grid-stride loop takes the rest)
+SM_COUNT = 132
+MAX_PROBE_BLOCKS = SM_COUNT * 16
+# P3's tiles: R rows of CONCAT_ROWS by 4 * BQ columns, BQ a power of two up
+# to CONCAT_MAX_QUADS, a thread of each of two groups (the a half and the
+# 2a half) a row and a column quad, at most CONCAT_THREADS a block; a
+# block's shared memory (one stage, or two where K goes in chunks, and the
+# hand-over between the groups) stays within the 48 KB a launch takes
+# without opting in; at most 16 rows, so that a warp's float4 loads of a
+# span at most 256 bytes
+CONCAT_ROWS = (16, 8, 4, 2, 1)
+CONCAT_MAX_QUADS = 16
+CONCAT_THREADS = 256
+CONCAT_SMEM_BUDGET = 48 * 1024
 
 
 def probe_lane_reduce_plain(a: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
@@ -95,47 +116,109 @@ def _launch(wrapper, out: torch.Tensor, *args, variant=None) -> torch.Tensor:
 
 
 def matvec_lanes(c: int) -> int:
-    """The lanes a P2 row takes: the least power of two L <= 32 with 4L >= C."""
+    """The lanes a P1 or P2 row takes: the least power of two L <= 32 with 4L >= C."""
     lanes = 1
     while lanes < 32 and 4 * lanes < c:
         lanes *= 2
     return lanes
 
 
-def plan_probe(name: str, a: torch.Tensor, *others: torch.Tensor, variant=None):
-    """(variant, grid, block) of P2 (``probe_matvec_dot``, others = (k,)) or
-    P4 (``probe_mask_broadcast``, others = (m,)) for these tensors.
+def concat_a_stride(kcp: int) -> int:
+    """P3's a tile row stride in floats: kcp rounded up to 4 mod 32 (the
+    kernel's concat_a_stride)."""
+    return kcp + ((4 - kcp) & 31)
 
-    ``vec4`` where C % 4 == 0 and the float4-read inputs (a, and P2's k)
-    start on 16 bytes, else ``scalar``; ``variant`` forces one, and vec4
-    raises where it cannot run. The grid covers every row in one pass up to
-    MAX_PROBE_BLOCKS blocks (the kernels loop over the rest): P2 puts
-    PROBE_THREADS / L rows in a block, P4 a float4 (vec4) or an element
-    (scalar) in a thread. Raises above the kernels' 32-bit indices.
+
+def concat_smem_bytes(rows: int, bq: int, kcp: int, stages: int) -> int:
+    """A P3 block's shared memory (the kernel's concat_smem_bytes): its
+    stages, each the a tile [rows][stride] and k2's two halves [kcp][4 bq],
+    then a float4 for each output, which the 2a group hands over."""
+    return 4 * (stages * (rows * concat_a_stride(kcp) + 2 * kcp * 4 * bq) + 4 * rows * bq)
+
+
+def concat_busiest_sm_bytes(m: int, c: int, n: int, rows: int, bq: int) -> int:
+    """The bytes P3's tiles of ``rows`` rows by 4 * ``bq`` columns copy into
+    the shared memory of the busiest SM, a tile a block: its rows of a and
+    k2's 2C rows at its columns, times the tiles that SM takes (one where
+    they do not outnumber the SMs)."""
+    tiles = -(-m // rows) * -(-n // (4 * bq))
+    return -(-tiles // SM_COUNT) * 4 * (rows * c + 2 * c * 4 * bq)
+
+
+def _concat_tiling(m: int, c: int, n: int):
+    """(rows, quads, kchunk, tiles) of P3 at a [m, c] and k2 [2c, n]."""
+    bq_max = 1  # the least power of two with 4 BQ >= N, at most CONCAT_MAX_QUADS
+    while bq_max < CONCAT_MAX_QUADS and 4 * bq_max < n:
+        bq_max *= 2
+    # every block copies its rows of a and its columns of k2, and where the
+    # blocks are many and small those copies are what costs (profile_slice.py's
+    # P3 sweep): the fewest bytes on the busiest SM, then the fewest blocks
+    shapes = [(r, q) for r in CONCAT_ROWS for q in (1, 2, 4, 8, 16)
+              if q <= bq_max and 2 * r * q <= CONCAT_THREADS]
+    rows, bq = min(shapes, key=lambda s: (concat_busiest_sm_bytes(m, c, n, *s),
+                                          -(-m // s[0]) * -(-n // (4 * s[1]))))
+    kchunk = c
+    if concat_smem_bytes(rows, bq, -(-c // 4) * 4, 1) > CONCAT_SMEM_BUDGET:
+        # two stages: from a chunk that fits whatever the stride's padding, up
+        room = CONCAT_SMEM_BUDGET - concat_smem_bytes(rows, bq, 0, 0) - 2 * 4 * 31 * rows
+        kchunk = max(4, room // (2 * 4 * (rows + 8 * bq)) // 4 * 4)
+        while kchunk + 4 < c and concat_smem_bytes(rows, bq, kchunk + 4, 2) <= CONCAT_SMEM_BUDGET:
+            kchunk += 4
+    return rows, bq, kchunk, -(-m // rows) * -(-n // (4 * bq))
+
+
+def plan_probe(name: str, a: torch.Tensor, *others: torch.Tensor, variant=None):
+    """The launch of P1 (``probe_lane_reduce``, others = (k,)), P2
+    (``probe_matvec_dot``, others = (k,)), P3 (``probe_lane_concat_dot``,
+    others = (k2,)) or P4 (``probe_mask_broadcast``, others = (m,)) for
+    these tensors: (variant, grid, block), and for P3 (variant, grid,
+    block, rows, kchunk).
+
+    ``vec4`` where C % 4 == 0 (for P3 also N % 4 == 0) and the float4-read
+    inputs (a, and P1's and P2's k or P3's k2) start on 16 bytes, else
+    ``scalar``; ``variant`` forces one, and vec4 raises where it cannot
+    run. P1, P2 and P4: the grid covers every row in one pass up to
+    MAX_PROBE_BLOCKS blocks (the kernels loop over the rest); P1 and P2
+    put PROBE_THREADS / L rows in a block, P4 a float4 (vec4) or an element
+    (scalar) in a thread. P3: one block a tile of ``rows`` rows by 4 * BQ
+    columns (block = 2 * rows * BQ threads), the R and BQ whose tiles copy
+    the fewest bytes into the busiest SM (``concat_busiest_sm_bytes``),
+    the grid every tile once; ``kchunk`` = C where one stage fits
+    CONCAT_SMEM_BUDGET, else the most columns of a (a multiple of 4) whose
+    two stages fit. Raises above the kernels' 32-bit indices.
     """
-    if name not in ("probe_matvec_dot", "probe_mask_broadcast"):
+    if name not in ("probe_lane_reduce", "probe_matvec_dot", "probe_lane_concat_dot",
+                    "probe_mask_broadcast"):
         raise ValueError(f"plan_probe: no plan for {name}")
     if a.dim() < 1 or a.numel() == 0:
         raise ValueError(f"{name}: empty input {tuple(a.shape)}")
-    if a.numel() > _INT_MAX:
-        raise ValueError(f"{name}: {a.numel()} elements, above the kernel's int range")
     c = a.shape[-1]
     n = a.numel() // c
-    read4 = (a, *others) if name == "probe_matvec_dot" else (a,)
-    vec4_ok = c % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in read4)
+    cols = others[0].shape[-1] if name == "probe_lane_concat_dot" else 1
+    for what, size in (("elements", a.numel()), ("outputs", n * cols),
+                       ("k2 elements", 2 * c * cols)):
+        if size > _INT_MAX:
+            raise ValueError(f"{name}: {size} {what}, above the kernel's int range")
+    read4 = (a,) if name == "probe_mask_broadcast" else (a, *others)
+    widths = (c, cols) if name == "probe_lane_concat_dot" else (c,)  # float4 rows
+    vec4_ok = all(w % 4 == 0 for w in widths) and all(t.data_ptr() % 16 == 0 for t in read4)
     if variant is None:
         variant = "vec4" if vec4_ok else "scalar"
     elif variant not in VARIANTS:
         raise ValueError(f"{name}: variant {variant!r}, not one of {VARIANTS}")
     elif variant == "vec4" and not vec4_ok:
-        raise ValueError(f"{name}: vec4 needs C % 4 == 0 and 16-byte aligned inputs "
-                         f"(C = {c}, offsets {[t.data_ptr() % 16 for t in read4]})")
-    if name == "probe_matvec_dot":
-        per_block = PROBE_THREADS // matvec_lanes(c)  # rows
-        items = n
-    else:
+        raise ValueError(f"{name}: vec4 needs C % 4 == 0 (P3: and N % 4 == 0) and 16-byte "
+                         f"aligned inputs (C = {c}, N = {cols}, offsets "
+                         f"{[t.data_ptr() % 16 for t in read4]})")
+    if name == "probe_lane_concat_dot":
+        rows, bq, kchunk, tiles = _concat_tiling(n, c, cols)
+        return variant, tiles, 2 * rows * bq, rows, kchunk
+    if name == "probe_mask_broadcast":
         per_block = PROBE_THREADS  # float4s or elements
         items = n * c // 4 if variant == "vec4" else n * c
+    else:
+        per_block = PROBE_THREADS // matvec_lanes(c)  # rows
+        items = n
     grid = min(-(-items // per_block), MAX_PROBE_BLOCKS)
     return variant, grid, PROBE_THREADS
 
@@ -145,16 +228,18 @@ def _need(cond: bool, entry: str, msg: str) -> None:
         raise ValueError(f"{entry}: {msg}")
 
 
-def probe_lane_reduce(a: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
-    """P1: a [..., C], k [C] -> sum over C of a * k, [...]."""
+def probe_lane_reduce(a: torch.Tensor, k: torch.Tensor, variant=None) -> torch.Tensor:
+    """P1: a [..., C], k [C] -> sum over C of a * k, [...]; ``variant``
+    forces plan_probe's choice."""
     if not _on_card("probe_lane_reduce", a, k):
         return probe_lane_reduce_plain(a, k)
     c = a.shape[-1]
     _need(a.dim() >= 1 and a.numel() > 0 and tuple(k.shape) == (c,), "probe_lane_reduce",
           f"a {tuple(a.shape)} and k {tuple(k.shape)}: needs k [C] with C = a's last dim")
+    variant, grid, block = plan_probe("probe_lane_reduce", a, k, variant=variant)
     out = torch.empty(a.shape[:-1], dtype=torch.float32, device=a.device)
     return _launch(probe_lane_reduce, out, a.data_ptr(), k.data_ptr(), out.data_ptr(),
-                   a.numel() // c, c)
+                   a.numel() // c, c, VARIANTS.index(variant), grid, block, variant=variant)
 
 
 def probe_matvec_dot(a: torch.Tensor, k: torch.Tensor, variant=None) -> torch.Tensor:
@@ -171,20 +256,22 @@ def probe_matvec_dot(a: torch.Tensor, k: torch.Tensor, variant=None) -> torch.Te
                    a.numel() // c, c, VARIANTS.index(variant), grid, block, variant=variant)
 
 
-def probe_lane_concat_dot(a: torch.Tensor, k2: torch.Tensor) -> torch.Tensor:
-    """P3: a [..., C], k2 [2C, N] -> concat([a, 2a], -1) @ k2, [..., N]."""
+def probe_lane_concat_dot(a: torch.Tensor, k2: torch.Tensor, variant=None) -> torch.Tensor:
+    """P3: a [..., C], k2 [2C, N] -> concat([a, 2a], -1) @ k2, [..., N];
+    ``variant`` forces plan_probe's choice."""
     if not _on_card("probe_lane_concat_dot", a, k2):
         return probe_lane_concat_dot_plain(a, k2)
     c = a.shape[-1]
     _need(a.dim() >= 1 and a.numel() > 0 and k2.dim() == 2 and k2.shape[0] == 2 * c
           and k2.shape[1] > 0, "probe_lane_concat_dot",
           f"a {tuple(a.shape)} and k2 {tuple(k2.shape)}: needs k2 [2C, N]")
-    m, n = a.numel() // c, k2.shape[1]
-    _need(m * n <= _INT_MAX and (m + 31) // 32 <= 65535, "probe_lane_concat_dot",
-          f"{m} rows x {n} columns: above the kernel's grid")
+    variant, grid, block, rows, kchunk = plan_probe("probe_lane_concat_dot", a, k2,
+                                                    variant=variant)
+    n = k2.shape[1]
     out = torch.empty((*a.shape[:-1], n), dtype=torch.float32, device=a.device)
     return _launch(probe_lane_concat_dot, out, a.data_ptr(), k2.data_ptr(), out.data_ptr(),
-                   m, c, n)
+                   a.numel() // c, c, n, VARIANTS.index(variant), grid, block, rows, kchunk,
+                   variant=variant)
 
 
 def probe_mask_broadcast(a: torch.Tensor, m: torch.Tensor, variant=None) -> torch.Tensor:
@@ -215,7 +302,8 @@ PROBES = (probe_lane_reduce, probe_matvec_dot, probe_lane_concat_dot, probe_mask
           probe_row_build)
 for _probe in PROBES:
     _probe.launches = 0
-for _probe in (probe_matvec_dot, probe_mask_broadcast):
+for _probe in (probe_lane_reduce, probe_matvec_dot, probe_lane_concat_dot,
+               probe_mask_broadcast):
     _probe.variants = dict.fromkeys(VARIANTS, 0)
 # each wrapper's plain version, which a card's results are held against
 PLAIN = {probe_lane_reduce: probe_lane_reduce_plain, probe_matvec_dot: probe_matvec_dot_plain,

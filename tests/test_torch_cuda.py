@@ -732,6 +732,50 @@ def test_p2_p4_variant_matches_its_plain_version(card, fn, variant, case):
         assert (got - want).abs().max().item() <= 1e-6 * want.abs().max().item()
 
 
+# P1's and P3's inputs: the script's shapes, odd C (and P3's N = 37) over 3
+# leading dims, a single row, a contiguous view at a 4-byte offset, and P3
+# with k2 past the shared budget (K in chunks); vec4 takes neither C = 33
+# nor the offset view
+P1_P3_CASES = {"script": ((16, 64, 64), 64), "odd": ((3, 5, 7, 33), 37), "row": ((1, 64), 64),
+               "offset": ((16, 64, 64), 64), "chunked": ((8, 64, 200), 200)}
+
+
+def p1_p3_args(fn, case: str, dev):
+    g = torch.Generator().manual_seed(len(case))
+    shape, n = P1_P3_CASES[case]
+    skip = 1 if case == "offset" else 0  # floats before a's first, in one allocation
+    a = torch.rand(skip + math.prod(shape), generator=g).to(dev)[skip:].view(shape)
+    other = (torch.rand(shape[-1], generator=g) if fn is probe_lane_reduce
+             else torch.rand((2 * shape[-1], n), generator=g))
+    return a, other.to(dev)
+
+
+@pytest.mark.parametrize("case", list(P1_P3_CASES))
+@pytest.mark.parametrize("variant", VARIANTS)
+@pytest.mark.parametrize("fn", [probe_lane_reduce, probe_lane_concat_dot], ids=["p1", "p3"])
+def test_p1_p3_variant_matches_its_plain_version(card, fn, variant, case):
+    a, other = p1_p3_args(fn, case, card)
+    vec4 = case in ("script", "row", "chunked")
+    runs = variant == "scalar" or vec4
+    plan = plan_probe(fn.__name__, a, other)
+    assert plan[0] == ("vec4" if vec4 else "scalar")
+    if fn is probe_lane_concat_dot:
+        assert (plan[4] < a.shape[-1]) == (case == "chunked")  # the K chunk
+    before, by_variant = fn.launches, dict(fn.variants)
+    if not runs:
+        with pytest.raises(ValueError, match="vec4 needs"):
+            fn(a, other, variant=variant)
+        assert fn.launches == before and fn.variants == by_variant
+        return
+    got = fn(a, other, variant=variant)
+    want = PLAIN[fn](a, other)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    assert fn.variants[variant] == by_variant[variant] + 1
+    assert got.shape == want.shape
+    assert (got - want).abs().max().item() <= 1e-6 * want.abs().max().item()
+
+
 def test_probe_kernels_refuse_what_they_do_not_take(card):
     a = torch.rand((4, 8, 16), device=card)
     with pytest.raises(ValueError, match="float32"):
@@ -740,6 +784,15 @@ def test_probe_kernels_refuse_what_they_do_not_take(card):
         probe_mask_broadcast(a.transpose(0, 1), torch.rand((8, 4), device=card))
     with pytest.raises(ValueError, match="k2"):
         probe_lane_concat_dot(a, torch.rand((16, 4), device=card))
+    with pytest.raises(ValueError, match="needs k"):
+        probe_lane_reduce(a, torch.rand(15, device=card))
+    for fn, other in ((probe_lane_reduce, torch.rand(16, device=card)),
+                      (probe_lane_concat_dot, torch.rand((32, 4), device=card))):
+        with pytest.raises(ValueError, match="not one of"):
+            fn(a, other, variant="wide")
+    # P3's k2 rows are float4s only at N % 4 == 0
+    with pytest.raises(ValueError, match="vec4 needs"):
+        probe_lane_concat_dot(a, torch.rand((32, 5), device=card), variant="vec4")
 
 
 def test_doctor_passes_on_the_card(card, capsys):

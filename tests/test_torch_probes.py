@@ -124,13 +124,14 @@ SHAPES = [(16, 64, 64), (3, 5, 33), (1, 1, 4), (2, 3, 128)]
 
 
 def set_shape(monkeypatch, mosaic, shape, seed):
-    """Seeded A, K1, M at ``shape`` through the loaded script's globals."""
+    """Seeded A, K1, M and K2 at ``shape`` through the loaded script's globals."""
     rows, cols, c = shape
     g = np.random.default_rng(seed)
     for name, value in (("ROWS", rows), ("COLS", cols), ("C", c),
                         ("A", g.random(shape, dtype=np.float32)),
                         ("K1", g.random((c,), dtype=np.float32)),
-                        ("M", g.random((rows, cols), dtype=np.float32))):
+                        ("M", g.random((rows, cols), dtype=np.float32)),
+                        ("K2", g.random((c, c), dtype=np.float32))):
         monkeypatch.setattr(mosaic, name, value)
 
 
@@ -273,3 +274,231 @@ def test_p2_p4_wrappers_take_the_plain_version_on_the_cpu_whatever_the_variant()
         for variant in (None, *pk.VARIANTS):
             assert torch.equal(fn(*args, variant=variant), pk.PLAIN[fn](*args))
         assert fn.variants == before and set(before) == set(pk.VARIANTS)
+
+
+# P1 and P3 redesigned: P1 on P2's kernel, P3's tiles and sum order, the planner
+
+
+def script_k2(mosaic) -> np.ndarray:
+    """The k2 the JAX P3 probe takes: [K2; K2], [2C, C]."""
+    return np.concatenate([mosaic.K2, mosaic.K2]).astype(np.float32)
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=["x".join(map(str, s)) for s in SHAPES])
+@pytest.mark.parametrize("name", ["probe_lane_reduce", "probe_lane_concat_dot"])
+def test_plain_p1_p3_match_the_jax_probe_at_other_shapes(mosaic, monkeypatch, name, shape):
+    set_shape(monkeypatch, mosaic, shape, seed=sum(shape))
+    want = jax_probe(mosaic, name)
+    if name == "probe_lane_reduce":
+        ours = pk.probe_lane_reduce_plain(t(mosaic.A), t(mosaic.K1)).numpy()
+        assert ours.shape == want.shape == shape[:2]
+    else:
+        ours = pk.probe_lane_concat_dot_plain(t(mosaic.A), t(script_k2(mosaic))).numpy()
+        assert ours.shape == want.shape == shape
+    assert np.abs(ours - want).max() <= SUM_TOL * np.abs(want).max()
+
+
+@pytest.mark.parametrize("shape,variant", EMULATED,
+                         ids=[f"{'x'.join(map(str, s))}-{v}" for s, v in EMULATED])
+def test_p1_kernel_sum_order_matches_the_jax_probe(mosaic, monkeypatch, shape, variant):
+    # P1 launches P2's kernel on k [C], the memory of k [C, 1]
+    set_shape(monkeypatch, mosaic, shape, seed=sum(shape))
+    want = jax_probe(mosaic, "probe_lane_reduce")
+    got = emulated_matvec_dot(t(mosaic.A), t(mosaic.K1).reshape(-1, 1), variant).numpy()
+    assert got.shape == want.shape and got.dtype == np.float32
+    assert np.abs(got - want).max() <= SUM_TOL * np.abs(want).max()
+
+
+def fmaf(x: torch.Tensor, w: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """fmaf as the f64 sum of the exact product rounded to fp32 (a double
+    rounding the kernel does not make, far below the gate)."""
+    return (x.double() * w.double() + s.double()).float()
+
+
+def emulated_lane_concat_dot(a: torch.Tensor, k2: torch.Tensor, variant: str):
+    """P3's kernel in plain torch as plan_probe tiles it: (out, the plan,
+    how often the grid writes each output). Block b takes row tile
+    b // col_tiles and column tile b % col_tiles; it stages, chunk by chunk
+    (kchunk columns of a, padded to a multiple of 4 with zeros), its rows
+    of a and k2's rows j and C + j at its columns, zero past the tensors'
+    ends (in vec4 every float4 lies wholly inside or outside, so its
+    copies stage what the scalar ones do); for each output one thread sums
+    lo += a * k2[j] and another hi += 2a * k2[C + j], by fmaf in ascending
+    j over the chunks (a padded slot adds 0 * 0), and the first writes
+    lo + hi. Every block's arithmetic is
+    the same, so the blocks are emulated side by side on the padded tiles."""
+    c = a.shape[-1]
+    rows2 = a.reshape(-1, c)
+    m, n = rows2.shape[0], k2.shape[1]
+    plan = pk.plan_probe("probe_lane_concat_dot", a, k2, variant=variant)
+    _, grid, block, rows, kchunk = plan
+    bn = 4 * (block // (2 * rows))  # two groups of threads, one a half of the concat
+    col_tiles = -(-n // bn)
+    if variant == "vec4":
+        assert c % 4 == 0 and n % 4 == 0 and kchunk % 4 == 0
+    written = np.zeros((-(-m // rows) * rows, col_tiles * bn), np.int64)
+    for b in range(grid):
+        row0, col0 = (b // col_tiles) * rows, (b % col_tiles) * bn
+        written[row0:row0 + rows, col0:col0 + bn] += 1
+    tiles_a = torch.zeros((written.shape[0], c))  # the row tiles, zero past m
+    tiles_a[:m] = rows2
+    tiles_k = torch.zeros((2 * c, written.shape[1]))  # the column tiles, zero past n
+    tiles_k[:, :n] = k2
+    lo = torch.zeros(written.shape)
+    hi = torch.zeros(written.shape)
+    for j0 in range(0, c, kchunk):
+        kc = min(kchunk, c - j0)
+        for jj in range(-(-kc // 4) * 4):
+            if jj < kc:
+                v, w0, w1 = tiles_a[:, j0 + jj:j0 + jj + 1], tiles_k[j0 + jj], tiles_k[c + j0 + jj]
+            else:  # a padded slot of the chunk
+                v, w0, w1 = torch.zeros((lo.shape[0], 1)), torch.zeros(lo.shape[1]), \
+                    torch.zeros(lo.shape[1])
+            lo = fmaf(v, w0, lo)
+            hi = fmaf(v * 2.0, w1, hi)
+    out = (lo + hi)[:m, :n]
+    return out.reshape(*a.shape[:-1], n), plan, torch.from_numpy(written[:m, :n])
+
+
+# (ROWS, COLS, C = N): the script's; odd C, N not a multiple of the tile; M
+# = 1001, not a multiple of R; k2 past the shared budget (K in chunks of 68,
+# the last 64), and so at odd C (the last chunk 65, padded to 68); one row
+P3_SHAPES = [(16, 64, 64), (3, 5, 33), (7, 143, 12), (8, 64, 200), (4, 128, 201), (1, 1, 4)]
+P3_EMULATED = [(s, v) for s in P3_SHAPES for v in pk.VARIANTS if v == "scalar" or s[2] % 4 == 0]
+
+
+@pytest.mark.parametrize("shape,variant", P3_EMULATED,
+                         ids=[f"{'x'.join(map(str, s))}-{v}" for s, v in P3_EMULATED])
+def test_p3_kernel_tiling_and_sum_order_match_the_jax_probe(mosaic, monkeypatch, shape,
+                                                             variant):
+    set_shape(monkeypatch, mosaic, shape, seed=sum(shape))
+    want = jax_probe(mosaic, "probe_lane_concat_dot")
+    a, k2 = t(mosaic.A).clone(), t(script_k2(mosaic)).clone()  # 64-byte aligned
+    got, (_, grid, block, rows, kchunk), written = emulated_lane_concat_dot(a, k2, variant)
+    assert torch.equal(written, torch.ones_like(written))  # every output once
+    m, c = shape[0] * shape[1], shape[2]
+    assert (kchunk < c) == (c >= 200)  # only there K goes in chunks
+    if shape == (7, 143, 12):
+        assert rows > 1 and m % rows != 0
+    got = got.numpy()
+    assert got.shape == want.shape == shape and got.dtype == np.float32
+    assert np.abs(got - want).max() <= SUM_TOL * np.abs(want).max()
+
+
+def test_p3_emulation_sums_each_half_in_order_then_adds_them():
+    # one row, C = 3, N = 1, exact in fp32: lo = 1*1 + 2*2 + 3*3, hi = 2*(1*4 + 2*5 + 3*6)
+    a = torch.tensor([[1.0, 2.0, 3.0]])
+    k2 = torch.tensor([[1.0], [2.0], [3.0], [4.0], [5.0], [6.0]])
+    got, plan, written = emulated_lane_concat_dot(a, k2, "scalar")
+    assert written.tolist() == [[1]]
+    assert plan == ("scalar", 1, 2, 1, 3)
+    assert got.tolist() == [[14.0 + 64.0]]
+    assert torch.equal(got, pk.probe_lane_concat_dot_plain(a, k2))
+
+
+@pytest.mark.parametrize("name", ["probe_lane_reduce", "probe_lane_concat_dot"])
+def test_plan_p1_p3_take_vec4_and_scalar_by_c_and_alignment(name):
+    def other(c, n=None):
+        return torch.zeros(c) if name == "probe_lane_reduce" else torch.zeros((2 * c, n or c))
+
+    a = torch.zeros((16, 64, 64))
+    assert pk.plan_probe(name, a, other(64))[0] == "vec4"
+    assert pk.plan_probe(name, a, other(64), variant="scalar")[0] == "scalar"
+    assert pk.plan_probe(name, torch.zeros((3, 5, 7, 33)), other(33))[0] == "scalar"
+    view = torch.zeros(1 + 16 * 64 * 64)[1:].view(16, 64, 64)
+    assert view.is_contiguous() and view.data_ptr() % 16 == 4
+    assert pk.plan_probe(name, view, other(64))[0] == "scalar"
+    with pytest.raises(ValueError, match="vec4 needs"):
+        pk.plan_probe(name, view, other(64), variant="vec4")
+    with pytest.raises(ValueError, match="not one of"):
+        pk.plan_probe(name, a, other(64), variant="wide")
+    # the float4-read weight at a 4-byte offset: scalar
+    w = other(64)
+    w_view = torch.zeros(1 + w.numel())[1:].view(w.shape)
+    assert pk.plan_probe(name, a, w_view)[0] == "scalar"
+    if name == "probe_lane_concat_dot":  # k2's rows float4s only at N % 4 == 0
+        assert pk.plan_probe(name, a, other(64, 37))[0] == "scalar"
+        assert pk.plan_probe(name, a, other(64, 36))[0] == "vec4"
+
+
+@pytest.mark.parametrize("n,c", [(1, 64), (1024, 64), (105, 33), (7, 4), (40000, 64)])
+def test_plan_p1_is_p2s(n, c):
+    a = torch.zeros((n, c))
+    assert pk.plan_probe("probe_lane_reduce", a, torch.zeros(c)) == \
+        pk.plan_probe("probe_matvec_dot", a, torch.zeros((c, 1)))
+
+
+def p3_outputs_visited(m: int, n: int, grid: int, block: int, rows: int) -> np.ndarray:
+    """How often P3's grid writes each output: block b takes row tile
+    b // col_tiles and column tile b % col_tiles, thread (r, q) its row r
+    and column quad q, inside the tensor."""
+    bq = block // (2 * rows)
+    bn, col_tiles = 4 * bq, -(-n // (4 * bq))
+    seen = np.zeros((m, n), np.int64)
+    for b in range(grid):
+        r0, c0 = (b // col_tiles) * rows, (b % col_tiles) * bn
+        seen[r0:r0 + rows, c0:c0 + bn] += 1
+    return seen
+
+
+@pytest.mark.parametrize("m,c,n", [(1024, 64, 64), (105, 33, 37), (1001, 12, 12),
+                                   (6, 200, 200), (1, 1, 1), (40000, 64, 64), (3, 90, 300),
+                                   (133, 5, 70)])
+def test_plan_p3_grid_covers_every_output_once(m, c, n):
+    variant, grid, block, rows, kchunk = pk.plan_probe(
+        "probe_lane_concat_dot", torch.zeros((m, c)), torch.zeros((2 * c, n)))
+    assert variant == ("vec4" if c % 4 == 0 and n % 4 == 0 else "scalar")
+    assert rows in pk.CONCAT_ROWS and block % (2 * rows) == 0 and block <= pk.CONCAT_THREADS
+    bq = block // (2 * rows)
+    assert bq & (bq - 1) == 0 and bq <= pk.CONCAT_MAX_QUADS
+    assert bq == 1 or 2 * bq < n  # no wider than the least BQ that covers N
+    np.testing.assert_array_equal(p3_outputs_visited(m, n, grid, block, rows), 1)
+    # one stage where it fits, else two of a multiple of 4 below C, the most that fit
+    one = pk.concat_smem_bytes(rows, bq, -(-c // 4) * 4, 1)
+    if kchunk == c:
+        assert one <= pk.CONCAT_SMEM_BUDGET
+    else:
+        assert one > pk.CONCAT_SMEM_BUDGET and kchunk % 4 == 0 and 4 <= kchunk < c
+        assert pk.concat_smem_bytes(rows, bq, kchunk, 2) <= pk.CONCAT_SMEM_BUDGET
+        assert pk.concat_smem_bytes(rows, bq, kchunk + 4, 2) > pk.CONCAT_SMEM_BUDGET \
+            or kchunk + 4 >= c
+
+
+@pytest.mark.parametrize("m,c,n", [(1024, 64, 64), (1000, 64, 64), (105, 33, 37), (133, 64, 64),
+                                   (1, 64, 64), (4096, 64, 64), (16, 64, 64), (1024, 8, 300)])
+def test_plan_p3_stages_the_fewest_bytes_on_the_busiest_sm(m, c, n):
+    _, grid, block, rows, _ = pk.plan_probe("probe_lane_concat_dot", torch.zeros((m, c)),
+                                            torch.zeros((2 * c, n)))
+    bq = block // (2 * rows)
+    least = 1
+    while least < pk.CONCAT_MAX_QUADS and 4 * least < n:
+        least *= 2
+    every = [pk.concat_busiest_sm_bytes(m, c, n, r, q) for r in pk.CONCAT_ROWS
+             for q in (1, 2, 4, 8, 16) if q <= least and 2 * r * q <= pk.CONCAT_THREADS]
+    assert pk.concat_busiest_sm_bytes(m, c, n, rows, bq) == min(every)
+    if (m, c, n) == (1024, 64, 64):  # the probe's: 16 rows by 32 columns, 128 blocks of 20 KB
+        assert (rows, bq, grid) == (16, 8, 128)
+        assert pk.concat_busiest_sm_bytes(m, c, n, rows, bq) == 4 * (16 * 64 + 128 * 32)
+
+
+def test_plan_p1_p3_raise_above_the_int_range():
+    big = torch.empty((2**16, 2**15 + 1), device="meta")
+    with pytest.raises(ValueError, match="int range"):
+        pk.plan_probe("probe_lane_reduce", big, torch.empty(2**15 + 1, device="meta"))
+    a = torch.empty((2**16, 8), device="meta")  # 2^16 rows x 2^15 columns of output
+    with pytest.raises(ValueError, match="outputs, above the kernel's int range"):
+        pk.plan_probe("probe_lane_concat_dot", a, torch.empty((16, 2**15), device="meta"))
+    k2 = torch.empty((2**16, 2**15), device="meta")  # 2^31 elements of k2
+    with pytest.raises(ValueError, match="int range"):
+        pk.plan_probe("probe_lane_concat_dot", torch.empty((1, 2**15), device="meta"), k2)
+
+
+def test_p1_p3_wrappers_take_the_plain_version_on_the_cpu_whatever_the_variant():
+    a, k1, k2, _ = map(t, probe_cuda.probe_inputs())
+    for fn, args in ((pk.probe_lane_reduce, (a, k1)),
+                     (pk.probe_lane_concat_dot, (a, torch.cat([k2, k2])))):
+        before, launches = dict(fn.variants), fn.launches
+        for variant in (None, *pk.VARIANTS):
+            assert torch.equal(fn(*args, variant=variant), pk.PLAIN[fn](*args))
+        assert fn.variants == before and set(before) == set(pk.VARIANTS)
+        assert fn.launches == launches
