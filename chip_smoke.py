@@ -8,17 +8,24 @@ Phases, one line of figures each (any failure raises and exits nonzero):
      and per kernel ptxas's registers, spills and static shared memory
      and the tensor-core instructions (HMMA, HGMMA) in its SASS
      (cuobjdump -sass); K2's and K3's MMA kernels must have some, and no
-     K2 or K3 kernel may spill; K3's dynamic shared memory and the blocks
-     an SM holds; P1's, P2's and P4's 14 kernels (P1 and P2 share 6 lane
-     counts x 2 variants, P4 2 variants), P3's 2 (vec4 and scalar, at
-     most 64 registers) and K1's 6 (fwd in fp32 and bf16, bwd in each at
-     1 and 2 rows a thread) must not spill either;
+     K2 or K3 kernel may spill; K2's one-channel (enc1) kernel's
+     tensor-core count, dynamic shared memory and blocks an SM, and K3's
+     shared memory and blocks an SM; P1's, P2's and P4's 14 kernels (P1
+     and P2 share 6 lane counts x 2 variants, P4 2 variants), P3's 2
+     (vec4 and scalar, at most 64 registers), P5's 2 (vec4 and scalar)
+     and K1's 6 (fwd in fp32 and bf16, bwd in each at 1 and 2 rows a
+     thread) must not spill either;
   3. K2 fused_pconv_eval against its plain version at the 14 stage
      geometries of the full-width (base_width=64) 512^2 PConvUNet, batch 2,
      with the stage's weight planes packed once: per stage its variant
-     (3xTF32 MMA, split-K or SIMT), split count, TFLOP/s, and the time
-     of one cuDNN fp32 conv of the same masked input (channels_last, the
-     yardstick: the conv alone); two calls must be bitwise equal;
+     (3xTF32 MMA, split-K, or enc1's one-channel variant), split count,
+     TFLOP/s, and the time of one cuDNN fp32 conv of the same masked input
+     (channels_last, the yardstick: the conv alone); two calls must be
+     bitwise equal; then enc1 at batch 2 and 8 by CUDA graph replay
+     (k1_times' method: one kernel node a call, inputs rotated past the
+     L2) beside its plain version, cuDNN's conv alone, the SIMT kernel
+     enc1 ran on before (still built for other channel counts), an empty
+     launch and its bound;
   4. K1 upsample2x_fwd against its plain version at the 7 decoder
      shapes at batch 2 and 8, fp32 (torch's bits) and, at batch 2, bf16
      (1 ulp); per shape the device ms a call by CUDA graph replay of the
@@ -38,7 +45,8 @@ Phases, one line of figures each (any failure raises and exits nonzero):
      BatchedInpainter(chunk=8) with seeded random weights, held against
      the same model's plain path on the composite and on dec2's
      features, with the kernels' launch counts (13 K2, 6 K1 and 1 K3 a
-     forward; K2's launches by variant; 1 pack a forward); the same
+     forward; K2's launches by variant: 1 one-channel (enc1), 0 SIMT,
+     the rest MMA; 1 pack a forward); the same
      feature check must fail the plain path run in TF32, which shows it
      can see an error of that size;
   7. files: evaluate on one PNG tile, then inpaint_directory end to end
@@ -71,7 +79,7 @@ Phases, one line of figures each (any failure raises and exits nonzero):
      unfused tail, and 1 K3, 13 K2 and 6 K1 launches a forward;
  12. probes: the five probe kernels P1-P5 (csrc/probes.cu) against their
      plain versions at scripts/probe_mosaic.py's shapes and seed (P4 and
-     P5 equal, P1-P3 within 1e-6 of max|plain|), P1-P4 in each of
+     P5 equal, P1-P3 within 1e-6 of max|plain|), P1-P5 in each of
      their two variants (vec4 and scalar, forced through plan_probe) and
      as planned on a view at a 4-byte offset (scalar), and against numpy
      as cli/probe_cuda.py prints it. Times: each kernel (and each
@@ -90,8 +98,9 @@ Phases, one line of figures each (any failure raises and exits nonzero):
      yaml_lite, 2 parent grids of 8 512^2 PNG tiles, a master checkpoint
      of the seeded full-width model): exit 0, every inpainted PNG within
      1 grey level of inpaint_directory with the unfused tail, every
-     colored PNG the LUT of its inpainted one, 13 K2, 6 K1, 1 K3 and 1
-     pack launches a forward; ``--mode train`` exits 2.
+     colored PNG the LUT of its inpainted one, 13 K2 (1 one-channel, 0
+     SIMT), 6 K1, 1 K3 and 1 pack launches a forward; ``--mode train``
+     exits 2.
 Then a JSON line of per-kernel figures (each with its bound: the larger
 of its bytes over 3.35 TB/s and its operations over the peak of the
 unit it runs on, from this run's shapes: the 67 TFLOP/s of fp32 outside
@@ -100,7 +109,7 @@ dense TF32 over the 3 TF32 products of each fp32 product; a probe's ms,
 plain_ms and library_ms are device times a launch by graph replay, K1's
 the same summed over its 7 shapes at batch 2 (and at 8, and the largest
 shape, beside them), and K2's and P1-P4's launches are also given by
-variant), and last
+variant, K2's with enc1's graph-replay figures), and last
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Without CUDA it exits nonzero before printing any result.
 """
@@ -142,6 +151,7 @@ from terra_gan_tpu_torch.ops.cuda.probe_kernels import (
     VARIANTS,
     empty_launch,
     plan_probe,
+    probe_row_build,
 )
 from terra_gan_tpu_torch.ops.cuda.pconv_kernel import (
     MMA_TILES,
@@ -207,6 +217,8 @@ SERVE_REQUESTS, SERVE_BATCH_ITEMS, SERVE_MAX_BATCH = 16, 4, 8
 SERVE_SECRET = "chip-smoke-secret"
 # K1 is timed at the batch of the other kernels and at the profile's 8
 K1_BATCHES = (STAGE_BATCH, 8)
+# enc1 by graph replay at the batch of the other kernels and at the profile's 8
+ENC1_BATCHES = (STAGE_BATCH, 8)
 # P1-P3 against their plain versions, of max|plain|: fp32 sums in another
 # order (sums of 64 and 128 products); P4 and P5 round as torch does: equal
 PROBE_SUM_REL_TOL = 1e-6
@@ -231,7 +243,7 @@ TF32X3_FLOPS = TF32_FLOPS / 3
 HBM_BYTES_PER_S = 3.35e12
 PEAKS = {"fp32": "fp32 outside the tensor cores, 67 TFLOP/s",
          "k2": "3xTF32: 3 TF32 products per fp32 product at 495 TFLOP/s (165 TFLOP/s of fp32 "
-               "products) for the MMA stages; 67 TFLOP/s fp32 for the SIMT stage (enc1)",
+               "products), every stage (enc1's one-channel variant too)",
          "k3": "3xTF32 for dec1 (165 TFLOP/s of fp32 products), counted once, not the "
                "recomputed halo; 67 TFLOP/s fp32 for the final conv and the skip term"}
 
@@ -402,6 +414,17 @@ def phase_build():
                                                for r in mma),
             f"build: K2's MMA kernels show no tensor-core instructions: {k2}")
     require(all(r.get("spill_bytes") == 0 for r in k2.values()), f"build: a K2 kernel spills: {k2}")
+    c1 = {fn: r for fn, r in k2.items() if "pconv_c1_kernel" in fn}
+    for mode, (fn, r) in enumerate(sorted(c1.items(), reverse=True)):  # <true> (MMA) first
+        smem, blocks, threads, th, tw = (ctypes.c_int() for _ in range(5))
+        check(lib.tg_pconv_c1_info(mode, *(ctypes.byref(v) for v in (smem, blocks, threads, th, tw))),
+              "tg_pconv_c1_info")
+        line("build", k2_c1_kernel=fn, registers=r.get("registers"),
+             spill_bytes=r.get("spill_bytes"), hmma=r.get("hmma"), hgmma=r.get("hgmma"),
+             dynamic_smem=smem.value, blocks_per_sm=blocks.value, threads=threads.value,
+             output_tile=f"{th.value}x{tw.value}")
+    require(len(c1) == 2 and c1[max(c1)].get("hmma", 0) > 0,
+            f"build: K2's one-channel kernels are not 2 with HMMA in the MMA one: {c1}")
     smem, blocks, threads, tile = (ctypes.c_int() for _ in range(4))
     check(lib.tg_decoder_tail_info(*(ctypes.byref(v) for v in (smem, blocks, threads, tile))),
           "tg_decoder_tail_info")
@@ -428,6 +451,11 @@ def phase_build():
     require(len(p3) == 2 and all(r.get("spill_bytes") == 0 and r.get("registers", 255) <= 64
                                  for r in p3.values()),
             f"build: P3's kernels are not 2 within 64 registers without spills: {p3}")
+    p5 = {fn: r for fn, r in report.items() if "row_build_kernel" in fn}
+    for fn, r in sorted(p5.items()):
+        line("build", p5_kernel=fn, registers=r.get("registers"), spill_bytes=r.get("spill_bytes"))
+    require(len(p5) == 2 and all(r.get("spill_bytes") == 0 for r in p5.values()),
+            f"build: P5's kernels are not 2 without spills: {p5}")
     # K1: the forward in fp32 and bf16, the adjoint in each at 1 and 2 dx rows a thread
     k1 = {fn: r for fn, r in report.items() if "upsample2x_" in fn and "_kernel" in fn}
     for fn, r in sorted(k1.items()):
@@ -519,7 +547,86 @@ def phase_k2(model, dev):
          library_ms=f"{fig['library_ms']:.4f}", gflop=f"{flop / 1e9:.2f}",
          tflops=f"{flop / fig['ms'] / 1e9:.2f}", bound_ms=f"{fig['bound_ms']:.4f}",
          bound_by=fig["bound_by"], vs_bound=f"{fig['ms'] / fig['bound_ms']:.2f}")
+    empty = timed_on_device("the empty launch", lambda: empty_launch(dev), kernels=1)
+    fig["enc1"] = {"variant": rows[0]["variant"], "empty_ms": empty,
+                   "timing": "device ms a call by CUDA graph replay, inputs rotated past the L2"}
+    for batch in ENC1_BATCHES:
+        args, _, packed = stage_inputs(model.enc1, SIZE, 1, 0, batch, gen, dev)
+        r = enc1_times(args, packed)
+        del args, packed
+        fig["enc1"][f"batch{batch}"] = r
+        line("k2_enc1", batch=batch, variant=rows[0]["variant"], ms=f"{r['ms']:.5f}",
+             plain_ms=f"{r['plain_ms']:.5f}", library_ms=f"{r['library_ms']:.5f}",
+             simt_ms=f"{r['simt_ms']:.5f}", empty_ms=f"{empty:.5f}",
+             bound_ms=f"{r['bound_ms']:.5f}", bound_by=r["bound_by"],
+             vs_bound=f"{r['ms'] / r['bound_ms']:.3f}", tflops=f"{r['tflops']:.2f}",
+             host_ms=f"{r['host_ms']:.4f}", calls=r["calls"], copies=r["copies"],
+             max_abs_err=f"{r['max_abs_err']:.3e}")
+        require(r["max_abs_err"] <= K2_REL_TOL * r["scale"] and r["masks_equal"],
+                f"K2 enc1 at batch {batch}: err {r['max_abs_err']} of {r['scale']}, "
+                f"masks equal {r['masks_equal']}")
     return fig
+
+
+def simt_enc1(args, out_shape, lib=None):
+    """enc1 on the SIMT kernel it ran on before the one-channel variant
+    (tg_pconv_eval_f32 of ``lib``, by default the port's, where it is still
+    built for other channel counts): HWIO weights copied once, then the C
+    entry called as its wrapper called it; a call of (x, mask)."""
+    x, m, weight, bias, stride, padding, a, bb = args
+    b, h, w, _ = x.shape
+    cout, k = weight.shape[0], weight.shape[-1]
+    hwio = weight.permute(2, 3, 1, 0).contiguous()
+    lib = lib or load_library()
+
+    def call(xm):
+        out = torch.empty(out_shape, device=x.device)
+        new_mask = torch.empty((*out_shape[:3], 1), device=x.device)
+        check(lib.tg_pconv_eval_f32(xm[0].data_ptr(), None, xm[1].data_ptr(), hwio.data_ptr(),
+                                    bias.data_ptr(), a.data_ptr(), bb.data_ptr(), out.data_ptr(),
+                                    new_mask.data_ptr(), b, h, w, 1, 0, cout, k, stride, padding,
+                                    torch.cuda.current_stream().cuda_stream), "simt_enc1")
+        return out, new_mask
+    return call
+
+
+def enc1_times(args, packed, versions=None) -> dict:
+    """enc1 (a stage_inputs of it) on the device by graph replay: the
+    kernel as the forward calls it (its planes packed beforehand; one
+    kernel node a call), its plain version, the SIMT kernel and cuDNN's
+    fp32 conv alone of the same masked input, each with calls a graph
+    scaled to a replay of about GRAPH_MIN_MS and rotated over copies of
+    (x, mask) past the L2; the bound at 3xTF32's rate; the wrapper's host
+    ms a call. ``versions``: more {name: (call of (x, mask), kernel nodes a
+    call or None)} timed the same way after the SIMT kernel
+    (profile_slice.py's turns)."""
+    x, m, weight, bias, stride, padding, a, bb = args
+    got, got_m = fused_pconv_eval(*args, packed=packed)
+    want, want_m = fused_pconv_eval_plain(*args)
+    simt = simt_enc1(args, tuple(got.shape))
+    simt_out = simt((x, m))[0]
+    torch.cuda.synchronize()
+    flop = 2.0 * got.numel() * weight[0].numel()
+    fig = bound(flop, nbytes(x, m, *packed, bias, a, bb, got, got_m), TF32X3_FLOPS)
+    calls = graph_calls(fig["bound_ms"])
+    srcs = past_l2((x, m), nbytes(got, got_m), calls)
+    kernel = lambda xm: fused_pconv_eval(xm[0], xm[1], *args[2:], packed=packed)  # noqa: E731
+    plain = lambda xm: fused_pconv_eval_plain(xm[0], xm[1], *args[2:])  # noqa: E731
+    w_cl = weight.contiguous(memory_format=torch.channels_last)
+    conv_srcs = [((v[0] * v[1]).permute(0, 3, 1, 2),) for v in srcs]  # x * m, NCHW views
+    conv = lambda v: F.conv2d(v[0], w_cl, bias, stride, padding)  # noqa: E731
+    versions = {"ms": (kernel, 1), "plain_ms": (plain, None), "simt_ms": (simt, 1),
+                **(versions or {})}
+    times = {name: timed_on_device(f"K2 enc1 {name}", rotating(fn, srcs), kernels=kernels,
+                                   launches=calls)
+             for name, (fn, kernels) in versions.items()}
+    times["library_ms"] = timed_on_device("K2 enc1's conv alone", rotating(conv, conv_srcs),
+                                          launches=calls)
+    return dict(**times, host_ms=host_ms(lambda: kernel((x, m))), calls=calls, copies=len(srcs),
+                max_abs_err=(got - want).abs().max().item(), scale=want.abs().max().item(),
+                simt_max_abs_err=(simt_out - want).abs().max().item(),
+                masks_equal=torch.equal(got_m, want_m), flop=flop, tflops=flop / times["ms"] / 1e9,
+                **fig)
 
 
 def _bf16_ulp(v: torch.Tensor) -> torch.Tensor:
@@ -555,11 +662,14 @@ def graph_calls(est_ms: float) -> int:
     return max(1, min(GRAPH_LAUNCHES, math.ceil(GRAPH_MIN_MS / max(est_ms, 1e-9))))
 
 
-def past_l2(src: torch.Tensor, out_bytes: int, calls: int) -> list:
-    """src and copies of it, as many as make the inputs and outputs of
-    ``calls`` calls pass twice the L2 (one where a call alone does)."""
-    copies = min(calls, math.ceil(2 * L2_BYTES / (nbytes(src) + out_bytes)))
-    return [src] + [src.clone() for _ in range(copies - 1)]
+def past_l2(src, out_bytes: int, calls: int) -> list:
+    """src (a tensor or a tuple of them) and copies of it, as many as make
+    the inputs and outputs of ``calls`` calls pass twice the L2 (one where
+    a call alone does)."""
+    group = src if isinstance(src, tuple) else (src,)
+    copies = min(calls, math.ceil(2 * L2_BYTES / (nbytes(*group) + out_bytes)))
+    clone = (lambda: tuple(t.clone() for t in group)) if isinstance(src, tuple) else src.clone
+    return [src] + [clone() for _ in range(copies - 1)]
 
 
 def rotating(fn, srcs: list):
@@ -835,12 +945,19 @@ def phase_slice(model, dev, counters):
             "fused_decoder_tail": 1, "pack_pconv_weights": 1}
     require(all(launches[k] == v * forwards for k, v in want.items()),
             f"slice: launches {launches} in {forwards} forwards, want {want} each")
-    # every stage is one launch of one variant, a split stage's sum the second
-    v = {k.split(".")[1]: n for k, n in launches.items() if k.startswith("fused_pconv_eval.")}
-    require(v["simt"] == forwards and v["simt"] + v["mma"] + v["mma_split"] == 13 * forwards
-            and v["split_reduce"] == v["mma_split"] > 0,
-            f"slice: K2 variants {v} in {forwards} forwards: enc1 SIMT, the rest MMA, some split")
+    require_k2_variants("slice", launches, forwards)
     return launches
+
+
+def require_k2_variants(phase: str, launches: dict, forwards: int) -> None:
+    """Every stage is one launch of one variant, a split stage's sum the
+    second: enc1 on the one-channel variant, none on SIMT, the rest MMA."""
+    v = {k.split(".")[1]: n for k, n in launches.items() if k.startswith("fused_pconv_eval.")}
+    require(v["mma_c1"] == forwards and v["simt"] == 0
+            and v["mma_c1"] + v["mma"] + v["mma_split"] == 13 * forwards
+            and v["split_reduce"] == v["mma_split"] > 0,
+            f"{phase}: K2 variants {v} in {forwards} forwards: want 1 enc1 (mma_c1), 0 SIMT, "
+            "the rest MMA, some split")
 
 
 def phase_files(model, dev, counters):
@@ -1541,7 +1658,8 @@ def phase_cli(dev, counters):
     line("cli", exit=code, train_exit=train_code, grids=len(CLI_GRIDS), tiles=n_png,
          u8_max_diff_vs_unfused=diff, colored_is_lut=lut_ok, forwards=forwards,
          seconds=f"{seconds:.2f}", k2_launches=launches["fused_pconv_eval"],
-         k1_launches=launches["upsample2x_fwd"], k3_launches=launches["fused_decoder_tail"])
+         k1_launches=launches["upsample2x_fwd"], k3_launches=launches["fused_decoder_tail"],
+         k2_variants={v: launches[f"fused_pconv_eval.{v}"] for v in fused_pconv_eval.variants})
     require(code == 0, f"cli: evaluate exited {code}")
     require(train_code == 2, f"cli: --mode train exited {train_code}, not 2")
     require(n_png == len(CLI_GRIDS) * CLI_TILES, f"cli: {n_png} tiles written")
@@ -1551,6 +1669,7 @@ def phase_cli(dev, counters):
             "fused_decoder_tail": 1, "pack_pconv_weights": 1}
     require(all(launches[k] == v * forwards for k, v in want.items()),
             f"cli: launches {launches} in {forwards} forwards, want {want} each")
+    require_k2_variants("cli", launches, forwards)
     return launches
 
 

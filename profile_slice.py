@@ -22,7 +22,15 @@ leg measures
      timed alone, plain and by the pack kernel; and, for
      the MMA stages, the planned kernel, the kernel on the other tile
      and, where the plan splits K, unsplit, each through the C entry
-     called directly (the reasons for plan_stage's choices);
+     called directly (the reasons for plan_stage's choices); then enc1
+     at batch 1, 2, 8 and 32 by CUDA graph replay (chip_smoke.enc1_times:
+     one kernel node a call, inputs rotated past the L2) beside its plain
+     version, cuDNN's conv alone, the SIMT kernel, the empty launch and
+     its bound, the one-channel kernel's two inner products (3xTF32 MMA
+     and fp32 FMA) through the C entry, and with --parent DIR the
+     parent's enc1 (its SIMT kernel, built alone from DIR's
+     csrc/pconv_eval.cu, HWIO weights) in turns parent, change, change,
+     parent;
   5. the tail per call at batch 1, 8, 16 and 32 on the model's own dec2
      outputs: K3 (the model's eval tail), its plain version and the
      unfused kernel path it replaces (K1, K2's dec1, cuDNN's final conv,
@@ -50,19 +58,19 @@ the card) measures
   9. a torch.profiler trace of 3 steps at batch 8: busy time, idle
      share, device time by kernel name and K1 backward's share.
 
-The probes leg times P1-P4 (csrc/probes.cu) at scripts/probe_mosaic.py's
+The probes leg times P1-P5 (csrc/probes.cu) at scripts/probe_mosaic.py's
 shapes, as chip_smoke.py's probes phase does (graph_device_ms: 1000
 calls in one CUDA graph, the median of 5 timed replays over 1000):
 
  11. each variant of each (vec4, scalar), the library call for the same
      function (torch.matmul for P1 and P2, a * m[..., None] for P4; for
      P3, which has none, torch.matmul on the pre-built [a, 2a], the
-     product alone) and an empty launch, and with --parent DIR (a
-     checkout of the parent commit, e.g. unpacked by git archive into
-     build/parent/) the parent's P1 and P3, built alone from DIR's
-     csrc/probes.cu and called through their own C signatures, in turns
-     parent, change, change, parent; every version held against the
-     plain version (P4 equal, P1-P3 within 1e-6 of max); then P3 at
+     product alone; P5 has none) and an empty launch, and with --parent
+     DIR (a checkout of the parent commit, e.g. unpacked by git archive
+     into build/parent/) the parent's P5, built alone from DIR's
+     csrc/probes.cu and called through its own C signature, in turns
+     parent, change, change, parent; every version held against
+     the plain version (P4 and P5 equal, P1-P3 within 1e-6 of max); then P3 at
      every tiling its C entry takes at that shape (rows and columns a
      block, K in one stage or in chunks of 32), through the C entry
      directly, beside the bytes its tiles copy into the busiest SM; and
@@ -85,10 +93,17 @@ the byte bound, with the wrapper's host ms and the per-call ms):
 
 The inference leg's trace also gives K1's share of busy time.
 
+The turns leg (with --parent DIR) times the eval forward of the parent
+checkout and of this one in turns, parent, change, change, parent, each
+turn a process of its own started in its checkout (FORWARD_TURN: the
+full-width model with seeded weights, DSM-like tiles, tiles/s at batch
+1, 8 and 32 from the median of 10 calls by CUDA events after 3 warm-up
+calls).
+
 It prints one line per figure and writes all of them as JSON to --out
 (and the traces beside it); --legs picks some of the legs (inference,
-stage, tail, serve, train, probes, k1; all by default). Without CUDA it
-exits nonzero.
+stage, tail, serve, train, probes, k1, turns; all but turns by default;
+enc1 is the stage leg's enc1 part alone). Without CUDA it exits nonzero.
 """
 
 from __future__ import annotations
@@ -96,7 +111,9 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
+import os
 import subprocess
+import sys
 import threading
 import time
 from collections import defaultdict
@@ -109,17 +126,18 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from chip_smoke import (
-    SEED, SIZE, WIDTH, bound, dec2_outputs, device_batch, device_ms, dsm_tiles, graph_calls,
-    graph_device_ms, host_ms, k1_line, k1_times, k2_stage, k3_bound, k3_work, line, ms_text,
-    nbytes, past_l2, phase_build, phase_env, probe_check, rotating, stage_geometries,
-    stage_inputs, sum_bounds, time_ms, train_state, unfused_forward, upsample_shapes,
+    K2_REL_TOL, SEED, SIZE, WIDTH, bound, dec2_outputs, device_batch, device_ms,
+    dsm_tiles, enc1_times, graph_calls, graph_device_ms, host_ms, k1_line, k1_times, k2_stage,
+    k3_bound, k3_work, line, ms_text, nbytes, past_l2, phase_build, phase_env, probe_check,
+    rotating, simt_enc1, stage_geometries, stage_inputs, sum_bounds, time_ms, train_state,
+    unfused_forward, upsample_shapes,
 )
 from terra_gan_tpu_torch.cli.probe_cuda import probe_inputs
 from terra_gan_tpu_torch.ops.cuda._build import BUILD_ROOT, NVCC_FLAGS, check, find_nvcc
 from terra_gan_tpu_torch.ops.cuda.probe_kernels import (
     CONCAT_ROWS, CONCAT_SMEM_BUDGET, CONCAT_THREADS, PLAIN, VARIANTS, concat_busiest_sm_bytes,
     concat_smem_bytes, empty_launch, plan_probe, probe_lane_concat_dot, probe_lane_reduce,
-    probe_mask_broadcast, probe_matvec_dot,
+    probe_mask_broadcast, probe_matvec_dot, probe_row_build,
 )
 from terra_gan_tpu_torch.evaluation.inference import OUTPUT_SIZE
 from terra_gan_tpu_torch.models.generator import STAGES
@@ -134,8 +152,10 @@ from terra_gan_tpu_torch.ops.cuda._build import check, load_library
 from terra_gan_tpu_torch.ops.cuda.pconv_kernel import (
     MMA_TILES,
     fused_pconv_eval,
+    fused_pconv_eval_plain,
     pack_pconv_weight,
     pack_pconv_weights,
+    plan_c1,
     plan_stage,
     sm_count,
 )
@@ -149,9 +169,12 @@ SERVE_LOADS = ((1, 16), (16, 64))  # (concurrency, requests)
 CHUNKS = (8, 16, 32)
 E2E_TILES = 32
 STAGE_BATCHES = (1, 8)
+ENC1_BATCHES = (1, 2, 8, 32)
 K1_BATCHES = (1, 2, 8, 32)
 SWEEP_BATCHES = (8,)  # where the k1 leg times every plan the planner could take
-LEGS = ("inference", "stage", "tail", "serve", "train", "probes", "k1")
+LEGS = ("inference", "stage", "tail", "serve", "train", "probes", "k1", "enc1", "turns")
+DEFAULT_LEGS = LEGS[:-2]  # the stage leg holds enc1; the turns leg needs --parent
+TURN_BATCHES = (1, 8, 32)
 TRAIN_BATCHES = (8, 16, 32)
 TRAIN_STEPS = 5
 TRACE_STEPS = 3
@@ -320,6 +343,85 @@ def stage_rates(model, dev):
     return rows
 
 
+def c1_direct(args, packed, mode: int):
+    """enc1 on the one-channel kernel through its C entry, with the inner
+    product ``mode`` (0: 3xTF32 MMA on the pack's planes, 1: fp32 FMA on
+    the weight itself); a call of (x, mask)."""
+    x, m, weight, bias, stride, padding, a, bb = args
+    b, h, w, _ = x.shape
+    cout, k = weight.shape[0], weight.shape[-1]
+    oh, ow = (h + 2 * padding - k) // stride + 1, (w + 2 * padding - k) // stride + 1
+    grid = plan_c1(b, oh, ow, sm_count(x.device)).grid
+    w_hi, w_lo = (weight, weight) if mode & 1 else packed
+    lib = load_library()
+
+    def call(xm):
+        out = torch.empty((b, oh, ow, cout), device=x.device)
+        new_mask = torch.empty((b, oh, ow, 1), device=x.device)
+        check(lib.tg_pconv_eval_c1_f32(
+            xm[0].data_ptr(), xm[1].data_ptr(), w_hi.data_ptr(), w_lo.data_ptr(), bias.data_ptr(),
+            a.data_ptr(), bb.data_ptr(), out.data_ptr(), new_mask.data_ptr(), b, h, w, cout, k,
+            stride, padding, grid, mode, torch.cuda.current_stream().cuda_stream), "c1_direct")
+        return out, new_mask
+    return call
+
+
+def enc1_rates(model, dev, parent_root):
+    """enc1 at ENC1_BATCHES by graph replay (chip_smoke.enc1_times), the
+    one-channel kernel's two inner products through its C entry, and with
+    a parent checkout its enc1 (its SIMT kernel) in turns parent, change,
+    change, parent; each version's output held to the plain version."""
+    parent = build_parent(parent_root, "pconv_eval") if parent_root else None
+    if parent:
+        parent.tg_pconv_eval_f32.restype = ctypes.c_int
+        parent.tg_pconv_eval_f32.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + [
+            ctypes.c_void_p]
+    gen = torch.Generator().manual_seed(SEED + 15)
+    rows = []
+    for batch in ENC1_BATCHES:
+        args, _, packed = stage_inputs(model.enc1, SIZE, 1, 0, batch, gen, dev)
+        x, m = args[:2]
+        want, want_m = fused_pconv_eval_plain(*args)
+        got = fused_pconv_eval(*args, packed=packed)
+        versions = {f"c1_mode{mode}_ms": (c1_direct(args, packed, mode), 1) for mode in (0, 1)}
+        # the MMA with its last k-step of 8 (K padded to 56), then two timing
+        # diagnostics (not outputs): the MMA without its stores, the stores
+        # without the MMA
+        versions["c1_k8_last_ms"] = (c1_direct(args, packed, 4 << 1), 1)
+        diagnostics = {"diag_no_stores_ms": (c1_direct(args, packed, 1 << 1), 1),
+                       "diag_no_mma_ms": (c1_direct(args, packed, 2 << 1), 1),
+                       "diag_neither_ms": (c1_direct(args, packed, 3 << 1), 1)}
+        # store forms: without .cs, float4 after a quad shuffle, both
+        for name, bits in (("c1_wb_stores_ms", 8), ("c1_quad4_ms", 16), ("c1_quad4_wb_ms", 24)):
+            versions[name] = (c1_direct(args, packed, bits << 1), 1)
+        if parent:
+            old = simt_enc1(args, tuple(want.shape), lib=parent)
+            change = lambda xm: fused_pconv_eval(xm[0], xm[1], *args[2:], packed=packed)  # noqa: E731
+            for turn_no, turn in enumerate(("parent", "change", "change", "parent")):
+                versions[f"turn{turn_no}_{turn}_ms"] = (old if turn == "parent" else change, 1)
+        errs = {}
+        for name, (fn, _) in versions.items():
+            out, out_m = fn((x, m))
+            torch.cuda.synchronize()
+            errs[name] = (out - want).abs().max().item()
+            if not (errs[name] <= K2_REL_TOL * want.abs().max().item() and torch.equal(out_m, want_m)):
+                raise RuntimeError(f"enc1 {name} at batch {batch}: {errs[name]} from the plain version")
+        mode0 = versions["c1_mode0_ms"][0]((x, m))
+        torch.cuda.synchronize()
+        if not (torch.equal(mode0[0], got[0]) and torch.equal(mode0[1], got[1])):
+            raise RuntimeError(f"enc1 at batch {batch}: the C entry's MMA is not the wrapper's output")
+        r = enc1_times(args, packed, {**versions, **diagnostics})
+        empty = graph_device_ms(lambda: empty_launch(dev))[0]
+        row = dict(batch=batch, empty_ms=empty, vs_bound=r["ms"] / r["bound_ms"],
+                   max_abs_errs={k[:-3]: v for k, v in errs.items()}, **r)
+        line("enc1", **{k: f"{v:.5f}" if isinstance(v, float) else v for k, v in row.items()
+                        if k not in ("max_abs_errs",)})
+        rows.append(row)
+        del args, packed, x, m, want, want_m, got, mode0
+        torch.cuda.empty_cache()
+    return rows
+
+
 def total(phase: str, key: str, rows, **extra):
     """The rows summed: kernel and plain ms, and the bound of the whole."""
     row = {key: "total", **{k: sum(r[k] for r in rows) for k in ("ms", "plain_ms", "bound_ms")},
@@ -464,19 +566,25 @@ def train_trace(dev, imgs, masks, out: Path):
     return row
 
 
-def parent_k1(root: Path):
-    """K1 fwd and bwd of a parent checkout at ``root``: its
-    csrc/upsample2x.cu built alone with the port's nvcc flags into
-    build/parent_k1/, called through its C signature (src, dst, N, H, W,
-    C, dtype, stream) by the steps its wrappers took: the checks,
-    torch.empty, load_library, torch.cuda.device, current_stream, the
-    ctypes call by name."""
-    src = root / "terra_gan_tpu_torch" / "csrc" / "upsample2x.cu"
-    so = BUILD_ROOT.parent / "parent_k1" / "libparent_k1.so"
+def build_parent(root: Path, source: str) -> ctypes.CDLL:
+    """A parent checkout's csrc/<source>.cu built alone with the port's
+    nvcc flags into build/parent_<source>/ and loaded (its C entries
+    unbound)."""
+    src = root / "terra_gan_tpu_torch" / "csrc" / f"{source}.cu"
+    so = BUILD_ROOT.parent / f"parent_{source}" / f"libparent_{source}.so"
     so.parent.mkdir(parents=True, exist_ok=True)
     subprocess.run([find_nvcc(), *NVCC_FLAGS, "-shared", "-o", str(so), str(src)], check=True,
                    capture_output=True, text=True, timeout=600)
-    lib = ctypes.CDLL(str(so))
+    return ctypes.CDLL(str(so))
+
+
+def parent_k1(root: Path):
+    """K1 fwd and bwd of a parent checkout at ``root`` (build_parent),
+    called through its C signature (src, dst, N, H, W, C, dtype, stream)
+    by the steps its wrappers took: the checks, torch.empty,
+    load_library, torch.cuda.device, current_stream, the ctypes call by
+    name."""
+    lib = build_parent(root, "upsample2x")
     for entry in ("tg_upsample2x_fwd", "tg_upsample2x_bwd"):
         fn = getattr(lib, entry)
         fn.restype = ctypes.c_int
@@ -615,37 +723,20 @@ def k1_rates(dev, parent_root):
 
 
 def parent_probes(root: Path):
-    """P1 and P3 of a parent checkout at ``root``: its csrc/probes.cu built
-    alone with the port's nvcc flags into build/parent_probes/, each bound
-    with the parent's C signature: (a, k, out, n, c, stream) for P1 and
-    (a, k2, out, m, c, n, stream) for P3."""
-    src = root / "terra_gan_tpu_torch" / "csrc" / "probes.cu"
-    so = BUILD_ROOT.parent / "parent_probes" / "libparent_probes.so"
-    so.parent.mkdir(parents=True, exist_ok=True)
-    subprocess.run([find_nvcc(), *NVCC_FLAGS, "-shared", "-o", str(so), str(src)], check=True,
-                   capture_output=True, text=True, timeout=600)
-    lib = ctypes.CDLL(str(so))
+    """The probes a parent checkout at ``root`` (build_parent) had in
+    another form than this one: P5, bound with its C signature (a, out,
+    rows, row elements, stream); P1-P4 are the parent's since PR 9."""
+    lib = build_parent(root, "probes")
+    row_build = lib.tg_probe_row_build
+    row_build.restype = ctypes.c_int
+    row_build.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
 
-    def bind(entry, n_int, shape, sizes):
-        fn = getattr(lib, entry)
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * n_int + [ctypes.c_void_p]
-
-        def call(a, other):
-            out = torch.empty(shape(a, other), device=a.device)
-            check(fn(a.data_ptr(), other.data_ptr(), out.data_ptr(), *sizes(a, other),
-                     torch.cuda.current_stream().cuda_stream), entry)
-            return out
-        return call
-
-    def rows(a):
-        return a.numel() // a.shape[-1]
-
-    return {"probe_lane_reduce": bind("tg_probe_lane_reduce", 2, lambda a, k: a.shape[:-1],
-                                      lambda a, k: (rows(a), a.shape[-1])),
-            "probe_lane_concat_dot": bind(
-                "tg_probe_lane_concat_dot", 3, lambda a, k2: (*a.shape[:-1], k2.shape[1]),
-                lambda a, k2: (rows(a), a.shape[-1], k2.shape[1]))}
+    def p5(a):
+        out = torch.empty_like(a)
+        check(row_build(a.data_ptr(), out.data_ptr(), a.shape[0], a.numel() // a.shape[0],
+                        torch.cuda.current_stream().cuda_stream), "tg_probe_row_build")
+        return out
+    return {"probe_row_build": p5}
 
 
 def p3_tilings(a: torch.Tensor, k2: torch.Tensor, empty: float) -> list:
@@ -723,9 +814,9 @@ def p3_scaling(dev, empty: float) -> list:
 
 
 def probe_rates(dev, parent_root):
-    """P1-P4 at the script's shapes: each variant, the library call (P3's:
-    the product alone) and an empty launch, and the parent's P1 and P3 in
-    turns, by graph replay."""
+    """P1-P5 at the script's shapes: each variant, the library call (P3's:
+    the product alone; P5 has none) and an empty launch, and the parent's
+    P5 in turns, by graph replay."""
     a, k1, k2, m = (torch.from_numpy(x).to(dev) for x in probe_inputs())
     k2 = torch.cat([k2, k2])
     cat = torch.cat([a, a * 2.0], -1)  # P3's product alone takes the concat built
@@ -734,7 +825,8 @@ def probe_rates(dev, parent_root):
              "probe_lane_concat_dot": (probe_lane_concat_dot, (a, k2),
                                        lambda a, k2: torch.matmul(cat, k2)),
              "probe_mask_broadcast": (probe_mask_broadcast, (a, m),
-                                      lambda a, m: a * m[..., None])}
+                                      lambda a, m: a * m[..., None]),
+             "probe_row_build": (probe_row_build, (a,), None)}
     parent = parent_probes(parent_root) if parent_root else None
     turns = ("parent", "change", "change", "parent") if parent else ("change", "change")
     rows = []
@@ -747,14 +839,15 @@ def probe_rates(dev, parent_root):
                 versions = {"parent": lambda: parent[name](*args)}
             else:
                 versions = {v: (lambda v=v: wrapper(*args, variant=v)) for v in VARIANTS}
-            lib_ms = graph_device_ms(lambda: library(*args))[0]
+            lib_ms = graph_device_ms(lambda: library(*args))[0] if library else None
             for version, fn in versions.items():
                 err = probe_check(name, fn(), PLAIN[wrapper](*args), f" {version}")
                 ms, kernels = graph_device_ms(fn)
                 row = dict(run=run, turn=turn, probe=name, version=version, device_ms=ms,
                            kernels_per_call=kernels, library_device_ms=lib_ms,
-                           library="product alone" if wrapper is probe_lane_concat_dot
-                           else "one call", empty_device_ms=empty, max_abs_err=err)
+                           library={probe_lane_concat_dot: "product alone",
+                                    probe_row_build: "none"}.get(wrapper, "one call"),
+                           empty_device_ms=empty, max_abs_err=err)
                 line("probes", **{k: f"{v:.6f}" if isinstance(v, float) else v
                                   for k, v in row.items()})
                 rows.append(row)
@@ -763,18 +856,66 @@ def probe_rates(dev, parent_root):
     return rows
 
 
+# one turn of the turns leg, run as a process of its own in a checkout: the
+# eval forward of the full-width model there, tiles/s at the given batches
+FORWARD_TURN = r"""
+import json, sys
+import numpy as np, torch
+from chip_smoke import SEED, SIZE, WIDTH, dsm_tiles, phase_env, time_ms
+from terra_gan_tpu_torch.utils.weights import init_generator
+
+batches = json.loads(sys.argv[1])
+phase_env()
+dev = torch.device("cuda", 0)
+model = init_generator(WIDTH, torch.Generator().manual_seed(SEED), dev)
+imgs, masks = dsm_tiles(max(batches), SIZE, SEED)
+rates = {}
+for b in batches:
+    x = torch.from_numpy(imgs[:b].astype(np.float32) / 255.0).to(dev)
+    m = torch.from_numpy((masks[:b] > 0).astype(np.float32)).to(dev)
+    with torch.inference_mode():
+        xm = x * m
+        ms = time_ms(lambda: model(xm, m), reps=10, warmup=3)
+    rates[b] = {"ms": ms, "tiles_per_s": 1e3 * b / ms}
+print(json.dumps(rates))
+"""
+
+
+def forward_turns(parent_root: Path):
+    """The eval forward of a parent checkout and of this one, in turns
+    parent, change, change, parent, each a process started in its
+    checkout (FORWARD_TURN): tiles/s at TURN_BATCHES."""
+    here = Path(__file__).resolve().parent
+    rows = []
+    for turn_no, (turn, root) in enumerate((("parent", parent_root), ("change", here),
+                                            ("change", here), ("parent", parent_root))):
+        env = {**os.environ, "PYTHONPATH": str(root.resolve())}
+        run = subprocess.run([sys.executable, "-c", FORWARD_TURN, json.dumps(TURN_BATCHES)],
+                             cwd=root, env=env, capture_output=True, text=True, timeout=900)
+        if run.returncode:
+            raise RuntimeError(f"the {turn} turn exited {run.returncode}: {run.stderr[-2000:]}")
+        rates = json.loads(run.stdout.strip().splitlines()[-1])
+        for b, r in rates.items():
+            row = dict(turn_no=turn_no, turn=turn, batch=int(b), **r)
+            line("turns", **{k: f"{v:.4f}" if isinstance(v, float) else v for k, v in row.items()})
+            rows.append(row)
+    return rows
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", type=Path, default=Path("chiprun_out/profile_slice.json"))
-    ap.add_argument("--legs", default=",".join(LEGS),
+    ap.add_argument("--legs", default=",".join(DEFAULT_LEGS),
                     help=f"comma-separated legs to run, of {','.join(LEGS)}")
     ap.add_argument("--parent", type=Path, default=None,
-                    help="probes and k1 legs: a parent checkout whose P1 and P3, and K1, "
-                         "run in turns")
+                    help="stage, enc1, probes, k1 and turns legs: a parent checkout whose "
+                         "enc1, P5, K1 and eval forward run in turns")
     args = ap.parse_args()
     legs = set(args.legs.split(","))
     if not legs <= set(LEGS):
         ap.error(f"--legs: unknown {sorted(legs - set(LEGS))}")
+    if "turns" in legs and args.parent is None:
+        ap.error("--legs turns needs --parent")
     kind, smi = phase_env()
     phase_build()
     dev = torch.device("cuda", 0)
@@ -789,6 +930,8 @@ def main() -> None:
                       trace=trace(model, dev, imgs, masks, args.out))
     if "stage" in legs:
         result["stages"] = stage_rates(model, dev)
+    if legs & {"stage", "enc1"}:
+        result["enc1"] = enc1_rates(model, dev, args.parent)
     if "tail" in legs:
         result["tail"] = tail_rates(model, dev, imgs, masks)
     del model
@@ -804,6 +947,8 @@ def main() -> None:
         result["k1"] = k1_rates(dev, args.parent)
     if "probes" in legs:
         result["probes"] = probe_rates(dev, args.parent)
+    if "turns" in legs:
+        result["turns"] = forward_turns(args.parent)
     args.out.write_text(json.dumps(result, indent=1))
     print(json.dumps({"written": str(args.out)}), flush=True)
 

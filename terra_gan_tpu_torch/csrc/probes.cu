@@ -18,8 +18,8 @@
 //                                                           (below)
 //   P4  out[p, c] = a[p, c] * m[p]                           one float4 a thread
 //                                                           (below)
-//   P5  out[r]    = .25 * a[r] + .75 * a[r + 1], r < R - 1;   one thread per element
-//       out[R-1]  = a[R-1]
+//   P5  out[r]    = .25 * a[r] + .75 * a[r + 1], r < R - 1;   one float4 a thread
+//       out[R-1]  = a[R-1]                                    (below)
 //
 // where p runs over the leading dimensions flattened. Bound on the H100: at
 // the probes' own shapes (a = 16x64x64 fp32, 256 KiB) every one moves under
@@ -70,6 +70,11 @@
 //   buffer).
 //   P4: a thread takes a float4 of a, which lies in one row, so a row index
 //   costs one 32-bit division a float4; m[p] is read once with __ldg.
+//   P5: a thread takes one float4 (vec4: a row of R = a.shape[0] holds a
+//   multiple of 4 floats, a and out 16-byte aligned) or one float
+//   (scalar), with 32-bit indices and no loop: at the probe's shape 16384
+//   float4s, 64 blocks of 256. Element i of the first R - 1 rows reads
+//   i and i + row; the last row is a copy.
 
 #include <cuda_runtime.h>
 
@@ -77,7 +82,8 @@
 
 namespace {
 
-constexpr int kThreads = 256;
+// P5's block
+constexpr int kRowBuildThreads = 256;
 
 // P1's, P2's and P4's blocks; every probe's variants as the wrapper numbers them
 constexpr int kProbeThreads = 128;
@@ -311,23 +317,32 @@ __global__ void __launch_bounds__(kProbeThreads)
   }
 }
 
-__global__ void row_build_kernel(const float* __restrict__ a, float* __restrict__ out, int rows,
-                                 int row_elems) {
-  const size_t total = (size_t)rows * row_elems;
-  const size_t last = (size_t)(rows - 1) * row_elems;
-  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < total;
-       i += (size_t)gridDim.x * blockDim.x) {
-    out[i] = i < last ? __fadd_rn(__fmul_rn(0.25f, a[i]), __fmul_rn(0.75f, a[i + row_elems]))
-                      : a[i];
+template <bool VEC4>
+__global__ void __launch_bounds__(kRowBuildThreads)
+    row_build_kernel(const float* __restrict__ a, float* __restrict__ out, unsigned total,
+                     unsigned last, unsigned row) {
+  // total, last (the items before the last row) and row in float4s (vec4) or floats
+  const unsigned i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= total) return;
+  if (VEC4) {
+    const float4* a4 = reinterpret_cast<const float4*>(a);
+    const float4 x = __ldg(a4 + i);
+    float4 o = x;
+    if (i < last) {
+      const float4 y = __ldg(a4 + i + row);
+      o = make_float4(__fadd_rn(__fmul_rn(0.25f, x.x), __fmul_rn(0.75f, y.x)),
+                      __fadd_rn(__fmul_rn(0.25f, x.y), __fmul_rn(0.75f, y.y)),
+                      __fadd_rn(__fmul_rn(0.25f, x.z), __fmul_rn(0.75f, y.z)),
+                      __fadd_rn(__fmul_rn(0.25f, x.w), __fmul_rn(0.75f, y.w)));
+    }
+    reinterpret_cast<float4*>(out)[i] = o;
+  } else {
+    const float x = __ldg(a + i);
+    out[i] = i < last ? __fadd_rn(__fmul_rn(0.25f, x), __fmul_rn(0.75f, __ldg(a + i + row))) : x;
   }
 }
 
 __global__ void empty_kernel() {}
-
-int blocks_for(size_t threads_needed) {
-  const size_t want = (threads_needed + kThreads - 1) / kThreads;
-  return (int)(want < 132 * 32 ? (want ? want : 1) : 132 * 32);
-}
 
 bool aligned16(const void* p) { return (reinterpret_cast<size_t>(p) & 15) == 0; }
 
@@ -459,12 +474,29 @@ extern "C" int tg_probe_mask_broadcast(const void* a, const void* mask, void* ou
   return (int)cudaGetLastError();
 }
 
-// a [rows, row_elems] -> out [rows, row_elems]
-extern "C" int tg_probe_row_build(const void* a, void* out, int rows, int row_elems,
-                                  void* stream) {
-  if (rows < 1 || row_elems < 1) return (int)cudaErrorInvalidValue;
-  row_build_kernel<<<blocks_for((size_t)rows * row_elems), kThreads, 0, (cudaStream_t)stream>>>(
-      static_cast<const float*>(a), static_cast<float*>(out), rows, row_elems);
+// a [rows, row_elems] -> out [rows, row_elems], in the variant (0 scalar,
+// 1 vec4: row_elems % 4 == 0, a and out 16-byte aligned), grid and block
+// (256 threads, a float4 or a float each) of the wrapper's plan;
+// rows * row_elems < 2^31
+extern "C" int tg_probe_row_build(const void* a, void* out, int rows, int row_elems, int variant,
+                                  int grid, int block, void* stream) {
+  if (rows < 1 || row_elems < 1 || (long long)rows * row_elems > 0x7fffffffLL ||
+      block != kRowBuildThreads)
+    return (int)cudaErrorInvalidValue;
+  const bool vec4 = variant == kVec4;
+  if ((!vec4 && variant != kScalar) ||
+      (vec4 && (row_elems % 4 != 0 || !aligned16(a) || !aligned16(out))))
+    return (int)cudaErrorInvalidValue;
+  const unsigned row = vec4 ? row_elems / 4 : row_elems;
+  const unsigned total = row * (unsigned)rows;
+  if ((long long)grid != ((long long)total + block - 1) / block) return (int)cudaErrorInvalidValue;
+  const auto* pa = static_cast<const float*>(a);
+  auto* po = static_cast<float*>(out);
+  const auto s = (cudaStream_t)stream;
+  if (vec4)
+    row_build_kernel<true><<<grid, block, 0, s>>>(pa, po, total, total - row, row);
+  else
+    row_build_kernel<false><<<grid, block, 0, s>>>(pa, po, total, total - row, row);
   return (int)cudaGetLastError();
 }
 

@@ -112,6 +112,10 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.tg_pconv_eval_f32.argtypes = [_P] * 9 + [_I] * 9 + [_P]
     lib.tg_pconv_eval_mma_f32.restype = _I
     lib.tg_pconv_eval_mma_f32.argtypes = [_P] * 12 + [_I] * 11 + [_P]
+    lib.tg_pconv_eval_c1_f32.restype = _I
+    lib.tg_pconv_eval_c1_f32.argtypes = [_P] * 9 + [_I] * 9 + [_P]
+    lib.tg_pconv_c1_info.restype = _I
+    lib.tg_pconv_c1_info.argtypes = [_I] + [_P] * 5
     lib.tg_pconv_mma_smem_bytes.restype = _I
     lib.tg_pconv_mma_smem_bytes.argtypes = [_I, _I]
     lib.tg_pack_tf32_planes.restype = _I
@@ -126,10 +130,11 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.tg_decoder_tail_info.restype = _I
     lib.tg_decoder_tail_info.argtypes = [_P] * 4
     # P1, P2 and P4 take n, c and the plan's variant, grid and block; P3
-    # m, c, n and the plan's variant, grid, block, rows and K chunk
+    # m, c, n and the plan's variant, grid, block, rows and K chunk; P5
+    # rows, row elements and the plan's variant, grid and block
     for name, n_ptr, n_int in (("lane_reduce", 3, 5), ("matvec_dot", 3, 5),
                                ("lane_concat_dot", 3, 8), ("mask_broadcast", 3, 5),
-                               ("row_build", 2, 2), ("empty", 0, 0)):
+                               ("row_build", 2, 5), ("empty", 0, 0)):
         fn = getattr(lib, f"tg_probe_{name}")
         fn.restype = _I
         fn.argtypes = [_P] * n_ptr + [_I] * n_int + [_P]

@@ -10,7 +10,7 @@ form ``_strided_strips_s1``). One call computes
 
 where ``a, bb`` are the eval BatchNorm folded per channel
 (``fold_batch_norm``). The kernel is ``csrc/pconv_eval.cu``; the source
-note there gives the design. It has two variants, picked by shape in
+note there gives the design. It has three variants, picked by shape in
 ``plan_stage``, never as a fallback:
 
 - ``mma``: an implicit GEMM on the tensor cores in 3xTF32 (fp32
@@ -22,7 +22,14 @@ note there gives the design. It has two variants, picked by shape in
   so the planes are never older than the weights (an in-place write
   through ``.data`` moves no version counter a cache could key on); a
   raw call without ``packed`` packs its own.
-- ``simt``: fp32 FMA, for the rest (enc1, one input channel).
+- ``mma_c1``: one input channel (enc1 at every width, Cout a multiple of
+  8 up to 64): persistent blocks over tiles of 8 x 32 outputs
+  (``plan_c1``), the patch staged once a tile and split into TF32 planes,
+  a separable box-sum, 3xTF32 on the tensor cores with K = k*k padded
+  to 56. It reads the pack's planes (``[Cout][k][k][1]``) and copies
+  nothing of the weight.
+- ``simt``: fp32 FMA, for the rest (channel counts that are not
+  multiples of 4, beside enc1's).
 
 It takes every stage of the model: k up to 7, stride 1 or 2, outputs
 down to 1x1, and the decoder's (up, skip) pair as two inputs read in
@@ -58,7 +65,12 @@ MMA_TILES = ((128, 128), (256, 64))
 MIN_CHUNKS_PER_SPLIT = 4
 # split while the tiles' last wave is less full than this
 WAVE_FILL = 0.9
-VARIANTS = ("simt", "mma", "mma_split", "split_reduce")
+VARIANTS = ("simt", "mma_c1", "mma", "mma_split", "split_reduce")
+# the one-channel variant: output tiles (rows, columns), persistent blocks
+# an SM, and the most output channels (csrc/pconv_eval.cu kC1*)
+C1_TILE = (8, 32)
+C1_BLOCKS_PER_SM = 2
+C1_MAX_COUT = 64
 
 
 class StagePlan(NamedTuple):
@@ -84,7 +96,11 @@ def plan_stage(m: int, n: int, ca: int, cb: int, k: int, sms: int) -> StagePlan:
 
     The split count is the least that fills the last wave of blocks to
     WAVE_FILL, or else the one that fills it most, with at least
-    MIN_CHUNKS_PER_SPLIT chunks a split."""
+    MIN_CHUNKS_PER_SPLIT chunks a split. One input channel and Cout a
+    multiple of 8 up to C1_MAX_COUT (enc1) take ``mma_c1``; other channel
+    counts that are not multiples of 4 take ``simt``."""
+    if ca == 1 and cb == 0 and n % 8 == 0 and n <= C1_MAX_COUT:
+        return StagePlan("mma_c1", -1, 1, 0)
     if ca % 4 or cb % 4:
         return StagePlan("simt", -1, 1, 0)
     # the 256 x 64 tile's shared memory holds k*k mask taps a row up to k = 5
@@ -99,6 +115,35 @@ def plan_stage(m: int, n: int, ca: int, cb: int, k: int, sms: int) -> StagePlan:
         if wave_fill(tiles * best, sms) >= WAVE_FILL:
             break
     return StagePlan("mma", tile, best, chunks)
+
+
+class C1Plan(NamedTuple):
+    """The one-channel variant's launch: tiles of C1_TILE outputs, walked
+    by ``grid`` persistent blocks (block z takes tiles z, z + grid, ...)."""
+
+    tiles_y: int
+    tiles_x: int
+    tiles: int
+    grid: int
+
+
+@functools.lru_cache(maxsize=None)
+def plan_c1(b: int, oh: int, ow: int, sms: int) -> C1Plan:
+    """The tiles of a [b, oh, ow] output and the persistent grid that
+    walks them: C1_BLOCKS_PER_SM blocks an SM, or one a tile where there
+    are fewer tiles. A pure function of the shape."""
+    th, tw = C1_TILE
+    tiles_y, tiles_x = -(-oh // th), -(-ow // tw)
+    tiles = b * tiles_y * tiles_x
+    return C1Plan(tiles_y, tiles_x, tiles, min(tiles, sms * C1_BLOCKS_PER_SM))
+
+
+def c1_tile_origin(plan: C1Plan, t: int) -> Tuple[int, int, int]:
+    """Tile t's (batch element, first output row, first output column), as
+    the kernel decodes it (c1_tile)."""
+    rest, tx = divmod(t, plan.tiles_x)
+    b, ty = divmod(rest, plan.tiles_y)
+    return b, ty * C1_TILE[0], tx * C1_TILE[1]
 
 
 def split_chunk_range(z: int, splits: int, chunks: int) -> Tuple[int, int]:
@@ -266,7 +311,7 @@ def fused_pconv_eval(
     x: [B,H,W,Ca]; x_skip: optional [B,H,W,Cb], the second half of an
     implicit channel concat; mask: [B,H,W,1]; weight: nn.Conv2d's own
     [Cout,Ca+Cb,k,k]; bias, bn_a, bn_b: [Cout]; packed: optional
-    ``pack_pconv_weight(weight)``, else the MMA variant packs per call.
+    ``pack_pconv_weight(weight)``, else the MMA variants pack per call.
     Returns (out [B,OH,OW,Cout], new_mask [B,OH,OW,1]), both fp32.
     """
     if x.device.type == "cpu":
@@ -308,6 +353,20 @@ def fused_pconv_eval(
             )
             check(err, "fused_pconv_eval")
             variants["simt"] += 1
+        elif plan.variant == "mma_c1":
+            if packed is None:
+                packed = pack_pconv_weights([weight])[0]
+            w_hi, w_lo = packed
+            _check_tensors(x.device, [(name, p, (cout, k, k, 1))
+                                      for name, p in (("w_hi", w_hi), ("w_lo", w_lo))])
+            c1 = plan_c1(b, oh, ow, sm_count(x.device))
+            err = lib.tg_pconv_eval_c1_f32(
+                x.data_ptr(), mask.data_ptr(), w_hi.data_ptr(), w_lo.data_ptr(),
+                bias.data_ptr(), bn_a.data_ptr(), bn_b.data_ptr(), out.data_ptr(),
+                new_mask.data_ptr(), b, h, w, cout, k, stride, padding, c1.grid, 0, stream,
+            )
+            check(err, "fused_pconv_eval")
+            variants["mma_c1"] += 1
         else:
             if packed is None:
                 packed = pack_pconv_weights([weight])[0]

@@ -16,12 +16,13 @@ in one load round (K in chunks, double-buffered, where a stage passes 48
 KB), builds the 2a half from the a in registers, and sums each output as
 lo (the a half, one group of threads) + hi (the 2a half, another).
 
-P1-P4 have two variants each, ``vec4`` (16-byte loads; C % 4 == 0 and
-16-byte aligned inputs, for P3 also N % 4 == 0) and ``scalar`` (any C,
-N and alignment); ``plan_probe`` picks the variant, the grid and the
-block (and P3's rows a block and K chunk) from the tensors alone, and a
-wrapper's ``variant=`` forces one. Their ``.variants`` count the launches
-by variant.
+Each has two variants, ``vec4`` (16-byte loads; C % 4 == 0 and 16-byte
+aligned inputs, for P3 also N % 4 == 0, for P5 a row of a multiple of 4
+floats) and ``scalar`` (any C, N and alignment); ``plan_probe`` picks
+the variant, the grid and the block (and P3's rows a block and K chunk)
+from the tensors alone, and a wrapper's ``variant=`` forces one. Their
+``.variants`` count the launches by variant. P5 takes a float4 (or a
+float) a thread, no loop.
 
 Each wrapper takes its plain version only for tensors on the CPU; for
 CUDA tensors it launches its kernel or raises, and counts the launch in
@@ -38,6 +39,7 @@ _INT_MAX = 2**31 - 1
 # the probes' variants, numbered as the C entry points take them
 VARIANTS = ("scalar", "vec4")
 PROBE_THREADS = 128  # P1's, P2's and P4's block
+ROW_BUILD_THREADS = 256  # P5's block
 # the SMs of an H100; the most blocks P1, P2 and P4 launch: 16 of 128
 # threads fill an SM's 2048 threads (a grid-stride loop takes the rest)
 SM_COUNT = 132
@@ -170,29 +172,33 @@ def _concat_tiling(m: int, c: int, n: int):
 def plan_probe(name: str, a: torch.Tensor, *others: torch.Tensor, variant=None):
     """The launch of P1 (``probe_lane_reduce``, others = (k,)), P2
     (``probe_matvec_dot``, others = (k,)), P3 (``probe_lane_concat_dot``,
-    others = (k2,)) or P4 (``probe_mask_broadcast``, others = (m,)) for
-    these tensors: (variant, grid, block), and for P3 (variant, grid,
-    block, rows, kchunk).
+    others = (k2,)), P4 (``probe_mask_broadcast``, others = (m,)) or P5
+    (``probe_row_build``, no others) for these tensors: (variant, grid,
+    block), and for P3 (variant, grid, block, rows, kchunk).
 
-    ``vec4`` where C % 4 == 0 (for P3 also N % 4 == 0) and the float4-read
+    ``vec4`` where C % 4 == 0 (for P3 also N % 4 == 0; for P5 the row
+    along dim 0, ``a[0].numel()``, instead of C) and the float4-read
     inputs (a, and P1's and P2's k or P3's k2) start on 16 bytes, else
     ``scalar``; ``variant`` forces one, and vec4 raises where it cannot
     run. P1, P2 and P4: the grid covers every row in one pass up to
     MAX_PROBE_BLOCKS blocks (the kernels loop over the rest); P1 and P2
     put PROBE_THREADS / L rows in a block, P4 a float4 (vec4) or an element
-    (scalar) in a thread. P3: one block a tile of ``rows`` rows by 4 * BQ
-    columns (block = 2 * rows * BQ threads), the R and BQ whose tiles copy
+    (scalar) in a thread. P5: a float4 (vec4) or an element (scalar) a
+    thread, ROW_BUILD_THREADS a block, every one in one pass. P3: one
+    block a tile of ``rows`` rows by 4 * BQ columns (block = 2 * rows *
+    BQ threads), the R and BQ whose tiles copy
     the fewest bytes into the busiest SM (``concat_busiest_sm_bytes``),
     the grid every tile once; ``kchunk`` = C where one stage fits
     CONCAT_SMEM_BUDGET, else the most columns of a (a multiple of 4) whose
     two stages fit. Raises above the kernels' 32-bit indices.
     """
     if name not in ("probe_lane_reduce", "probe_matvec_dot", "probe_lane_concat_dot",
-                    "probe_mask_broadcast"):
+                    "probe_mask_broadcast", "probe_row_build"):
         raise ValueError(f"plan_probe: no plan for {name}")
     if a.dim() < 1 or a.numel() == 0:
         raise ValueError(f"{name}: empty input {tuple(a.shape)}")
-    c = a.shape[-1]
+    # P5's float4s run along a row of dim 0, the others' along the last dim
+    c = a.numel() // a.shape[0] if name == "probe_row_build" else a.shape[-1]
     n = a.numel() // c
     cols = others[0].shape[-1] if name == "probe_lane_concat_dot" else 1
     for what, size in (("elements", a.numel()), ("outputs", n * cols),
@@ -213,6 +219,9 @@ def plan_probe(name: str, a: torch.Tensor, *others: torch.Tensor, variant=None):
     if name == "probe_lane_concat_dot":
         rows, bq, kchunk, tiles = _concat_tiling(n, c, cols)
         return variant, tiles, 2 * rows * bq, rows, kchunk
+    if name == "probe_row_build":
+        items = a.numel() // 4 if variant == "vec4" else a.numel()
+        return variant, -(-items // ROW_BUILD_THREADS), ROW_BUILD_THREADS
     if name == "probe_mask_broadcast":
         per_block = PROBE_THREADS  # float4s or elements
         items = n * c // 4 if variant == "vec4" else n * c
@@ -288,22 +297,23 @@ def probe_mask_broadcast(a: torch.Tensor, m: torch.Tensor, variant=None) -> torc
                    a.numel() // c, c, VARIANTS.index(variant), grid, block, variant=variant)
 
 
-def probe_row_build(a: torch.Tensor) -> torch.Tensor:
-    """P5: rows along dim 0, .25 * a[r] + .75 * a[r + 1], the last row copied."""
+def probe_row_build(a: torch.Tensor, variant=None) -> torch.Tensor:
+    """P5: rows along dim 0, .25 * a[r] + .75 * a[r + 1], the last row
+    copied; ``variant`` forces plan_probe's choice."""
     if not _on_card("probe_row_build", a):
         return probe_row_build_plain(a)
     _need(a.dim() >= 1 and a.numel() > 0, "probe_row_build", f"empty input {tuple(a.shape)}")
-    out = torch.empty_like(a)
+    variant, grid, block = plan_probe("probe_row_build", a, variant=variant)
+    out = torch.empty_like(a)  # a fresh allocation: 16-byte aligned
     rows = a.shape[0]
-    return _launch(probe_row_build, out, a.data_ptr(), out.data_ptr(), rows, a.numel() // rows)
+    return _launch(probe_row_build, out, a.data_ptr(), out.data_ptr(), rows, a.numel() // rows,
+                   VARIANTS.index(variant), grid, block, variant=variant)
 
 
 PROBES = (probe_lane_reduce, probe_matvec_dot, probe_lane_concat_dot, probe_mask_broadcast,
           probe_row_build)
 for _probe in PROBES:
     _probe.launches = 0
-for _probe in (probe_lane_reduce, probe_matvec_dot, probe_lane_concat_dot,
-               probe_mask_broadcast):
     _probe.variants = dict.fromkeys(VARIANTS, 0)
 # each wrapper's plain version, which a card's results are held against
 PLAIN = {probe_lane_reduce: probe_lane_reduce_plain, probe_matvec_dot: probe_matvec_dot_plain,

@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from terra_gan_tpu_torch.ops.cuda.pconv_kernel import (
+    VARIANTS as K2_VARIANTS,
     fold_batch_norm,
     fused_pconv_eval,
     fused_pconv_eval_plain,
@@ -25,6 +26,7 @@ from terra_gan_tpu_torch.ops.cuda.pconv_kernel import (
     plan_stage,
     sm_count,
 )
+from terra_gan_tpu_torch.ops.pconv import mask_window_sum
 from terra_gan_tpu_torch.ops.cuda.upsample_kernel import (
     Upsample2x,
     upsample2x_bwd,
@@ -45,6 +47,7 @@ from terra_gan_tpu_torch.ops.cuda.probe_kernels import (
     probe_lane_reduce,
     probe_mask_broadcast,
     probe_matvec_dot,
+    probe_row_build,
 )
 from terra_gan_tpu_torch.parallel.infer import BatchedInpainter
 from terra_gan_tpu_torch.training.state import GANTrainState
@@ -144,7 +147,7 @@ def test_pconv_kernel_split_k_matches_plain(card, b, k, s, ca, cb, cout, hw):
     want, want_m = fused_pconv_eval_plain(*args, x_skip=skip)
     torch.cuda.synchronize()
     used = {v: n - before[v] for v, n in fused_pconv_eval.variants.items()}
-    assert used == {"simt": 0, "mma": 0, "mma_split": 1, "split_reduce": 1}
+    assert used == {**dict.fromkeys(K2_VARIANTS, 0), "mma_split": 1, "split_reduce": 1}
     # of max|plain|, as chip_smoke.py's K2 gate: sums of up to 9216 fp32
     # products in another order, at outputs of a few units
     assert (got - want).abs().max().item() <= RTOL * want.abs().max().item()
@@ -238,6 +241,85 @@ def test_pconv_kernel_rejects_what_it_does_not_take(card):
     args, _ = stage_args(0, 8, 8, 0, 8, 3, 1, card)
     args[0] = args[0].double()
     with pytest.raises(ValueError, match="float32"):
+        fused_pconv_eval(*args)
+
+
+# enc1's one-channel variant (mma_c1): k = 7, stride 2, at the batches of
+# the model's paths and at 512^2, an odd size and two small ones; then every
+# k at stride 1 and 2 at 64^2 and 13^2
+C1_CASES = ([(b, hw, 7, 2) for b in (1, 2, 8) for hw in (512, 511, 64, 13)]
+            + [(2, hw, k, s) for hw in (64, 13) for k in range(1, 8) for s in (1, 2)])
+
+
+def k2_used(before: dict) -> dict:
+    return {v: n - before[v] for v, n in fused_pconv_eval.variants.items()}
+
+
+@pytest.mark.parametrize("b,hw,k,s", C1_CASES, ids=[f"b{b}-{hw}-k{k}-s{s}" for b, hw, k, s in C1_CASES])
+def test_c1_variant_matches_plain_and_repeats_bitwise(card, b, hw, k, s):
+    args, _ = stage_args(b * 1000 + hw + 10 * k + s, hw, 1, 0, 64, k, s, card, b=b)
+    assert plan_of(args, None).variant == "mma_c1"
+    before, weight = dict(fused_pconv_eval.variants), args[2].clone()
+    got, got_m = fused_pconv_eval(*args)
+    again, again_m = fused_pconv_eval(*args, packed=pack_pconv_weight(args[2]))
+    want, want_m = fused_pconv_eval_plain(*args)
+    torch.cuda.synchronize()
+    assert k2_used(before) == {**dict.fromkeys(K2_VARIANTS, 0), "mma_c1": 2}
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=RTOL, atol=ATOL)
+    assert torch.equal(got_m, want_m)
+    assert torch.equal(got, again) and torch.equal(got_m, again_m)
+    assert torch.equal(args[2], weight)  # the weight is read, not copied or changed
+
+
+@pytest.mark.parametrize("holes", ["all", "none", "random", "nan"])
+@pytest.mark.parametrize("cout", [64, 16, 8])
+def test_c1_variant_masks_and_nan(card, holes, cout):
+    args, _ = stage_args(cout + len(holes), 64, 1, 0, cout, 7, 2, card)
+    x, m = args[0], args[1]
+    if holes == "all":
+        m.zero_()
+    elif holes == "none":
+        m.fill_(1.0)
+    elif holes == "nan":  # NaN under a zero mask: x * m is NaN, and so is every window over it
+        x[0, 40, 41, 0], m[0, 40, 41, 0] = float("nan"), 0.0
+    got, got_m = fused_pconv_eval(*args)
+    nan_out = mask_window_sum(torch.isnan(x).float(), 7, 7, 2, 3) > 0
+    clean = list(args)
+    clean[0] = torch.nan_to_num(x, nan=0.0)  # the same x * m wherever it is not NaN
+    want, want_m = fused_pconv_eval_plain(*clean)
+    torch.cuda.synchronize()
+    assert torch.equal(got_m, want_m)
+    assert torch.equal(torch.isnan(got), nan_out.expand_as(got))
+    ok = ~torch.isnan(got)
+    np.testing.assert_allclose(got[ok].cpu().numpy(), want[ok].cpu().numpy(), rtol=RTOL, atol=ATOL)
+    assert (holes != "nan") or nan_out.sum().item() == 12  # 3 x 4 windows hold (40, 41)
+    if holes == "all":
+        assert not got_m.any()
+    if holes == "none":
+        assert got_m.all()
+
+
+def test_eval_forward_runs_enc1_on_the_one_channel_variant(card):
+    model = init_generator(64, torch.Generator().manual_seed(14), card)
+    g = torch.Generator().manual_seed(15)
+    x = torch.rand((2, 64, 64, 1), generator=g).to(card)
+    m = (torch.rand((2, 64, 64, 1), generator=g) > 0.3).float().to(card)
+    before, launches = dict(fused_pconv_eval.variants), fused_pconv_eval.launches
+    with torch.inference_mode():
+        model(x * m, m)
+    used = k2_used(before)
+    assert fused_pconv_eval.launches - launches == 13
+    assert used["mma_c1"] == 1 and used["simt"] == 0
+    assert used["mma"] + used["mma_split"] == 12 and used["split_reduce"] == used["mma_split"]
+
+
+def test_c1_variant_rejects_what_it_does_not_take(card):
+    args, _ = stage_args(0, 16, 1, 0, 8, 7, 2, card)
+    with pytest.raises(ValueError, match="w_hi has shape"):
+        fused_pconv_eval(*args, packed=pack_pconv_weight(torch.zeros((8, 1, 5, 5), device=card)))
+    x = torch.empty(1 + 2 * 16 * 16, device=card)[1:].view(2, 16, 16, 1)
+    args[0] = x.copy_(args[0])
+    with pytest.raises(ValueError, match="16-byte aligned"):
         fused_pconv_eval(*args)
 
 
@@ -776,6 +858,35 @@ def test_p1_p3_variant_matches_its_plain_version(card, fn, variant, case):
     assert (got - want).abs().max().item() <= 1e-6 * want.abs().max().item()
 
 
+# P5's inputs: the script's shape, rows of 4-float multiples and not, a
+# single row, one-dimensional, many blocks, and a view at a 4-byte offset
+P5_CASES = {"script": (16, 64, 64), "odd": (3, 5, 7, 33), "row": (1, 64), "flat": (37,),
+            "small": (5, 4), "wide": (300, 1000), "ragged": (7, 5, 6), "offset": (16, 64, 64)}
+
+
+@pytest.mark.parametrize("case", list(P5_CASES))
+@pytest.mark.parametrize("variant", VARIANTS)
+def test_p5_variant_equals_its_plain_version(card, variant, case):
+    g = torch.Generator().manual_seed(len(case))
+    shape = P5_CASES[case]
+    skip = 1 if case == "offset" else 0
+    a = torch.rand(skip + math.prod(shape), generator=g).to(card)[skip:].view(shape)
+    vec4 = case in ("script", "row", "small", "wide")
+    assert plan_probe("probe_row_build", a)[0] == ("vec4" if vec4 else "scalar")
+    before, by_variant = probe_row_build.launches, dict(probe_row_build.variants)
+    if variant == "vec4" and not vec4:
+        with pytest.raises(ValueError, match="vec4 needs"):
+            probe_row_build(a, variant=variant)
+        assert probe_row_build.launches == before and probe_row_build.variants == by_variant
+        return
+    got = probe_row_build(a, variant=variant)
+    want = PLAIN[probe_row_build](a)
+    torch.cuda.synchronize()
+    assert probe_row_build.launches == before + 1
+    assert probe_row_build.variants[variant] == by_variant[variant] + 1
+    assert torch.equal(got, want)
+
+
 def test_probe_kernels_refuse_what_they_do_not_take(card):
     a = torch.rand((4, 8, 16), device=card)
     with pytest.raises(ValueError, match="float32"):
@@ -793,6 +904,8 @@ def test_probe_kernels_refuse_what_they_do_not_take(card):
     # P3's k2 rows are float4s only at N % 4 == 0
     with pytest.raises(ValueError, match="vec4 needs"):
         probe_lane_concat_dot(a, torch.rand((32, 5), device=card), variant="vec4")
+    with pytest.raises(ValueError, match="not one of"):
+        probe_row_build(a, variant="wide")
 
 
 def test_doctor_passes_on_the_card(card, capsys):

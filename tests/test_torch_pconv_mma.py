@@ -171,8 +171,8 @@ def test_split_k_plan_covers_every_k_index_once(batch):
     split_stages = set()
     for name, m, n, ca, cb, k in full_width_stages(batch):
         plan = plan_stage(m, n, ca, cb, k, H100_SMS)
-        if name == "enc1":
-            assert plan.variant == "simt" and plan.splits == 1
+        if name == "enc1":  # one input channel: the one-channel variant, unsplit
+            assert plan.variant == "mma_c1" and plan.splits == 1
             continue
         assert plan.variant == "mma"
         nca, ncb = -(-ca // CHUNK_CHANNELS), -(-cb // CHUNK_CHANNELS)
@@ -198,8 +198,10 @@ def test_split_k_plan_covers_every_k_index_once(batch):
 
 
 def test_plan_takes_simt_for_channels_the_copies_cannot_take():
-    assert plan_stage(64, 8, 1, 0, 7, H100_SMS).variant == "simt"
+    # one input channel (enc1) has its own variant; other ragged counts are SIMT's
+    assert plan_stage(64, 8, 1, 0, 7, H100_SMS).variant == "mma_c1"
     assert plan_stage(64, 8, 8, 6, 3, H100_SMS).variant == "simt"
+    assert plan_stage(64, 8, 1, 1, 3, H100_SMS).variant == "simt"
     plan = plan_stage(64, 8, 8, 8, 3, H100_SMS)
     assert plan.variant == "mma" and plan.tile == 1 and plan.chunks == 9 * 2
 

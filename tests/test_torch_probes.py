@@ -263,8 +263,10 @@ def test_plan_raises_above_the_int_range_and_for_other_probes():
                         ("probe_mask_broadcast", torch.empty(2**16, device="meta"))):
         with pytest.raises(ValueError, match="int range"):
             pk.plan_probe(name, big, other)
+    with pytest.raises(ValueError, match="int range"):
+        pk.plan_probe("probe_row_build", torch.empty((2**16, 2**15 + 1), device="meta"))
     with pytest.raises(ValueError, match="no plan"):
-        pk.plan_probe("probe_row_build", torch.zeros((2, 4)))
+        pk.plan_probe("probe_row_shuffle", torch.zeros((2, 4)))
 
 
 def test_p2_p4_wrappers_take_the_plain_version_on_the_cpu_whatever_the_variant():
@@ -274,6 +276,71 @@ def test_p2_p4_wrappers_take_the_plain_version_on_the_cpu_whatever_the_variant()
         for variant in (None, *pk.VARIANTS):
             assert torch.equal(fn(*args, variant=variant), pk.PLAIN[fn](*args))
         assert fn.variants == before and set(before) == set(pk.VARIANTS)
+
+
+# P5 redesigned: a float4 (vec4) or a float (scalar) a thread, the planner
+
+
+def test_p5_plan_takes_vec4_for_rows_of_4_floats_at_16_bytes():
+    a = torch.zeros((16, 64, 64))
+    assert pk.plan_probe("probe_row_build", a) == ("vec4", 64, 256)  # 16384 float4s
+    assert pk.plan_probe("probe_row_build", a, variant="scalar") == ("scalar", 256, 256)
+    assert pk.plan_probe("probe_row_build", torch.zeros((300, 1000))) == ("vec4", 293, 256)
+    assert pk.plan_probe("probe_row_build", torch.zeros((5, 4)))[0] == "vec4"
+
+
+@pytest.mark.parametrize("shape", [(3, 5, 7, 33), (5, 6), (37,), (8,), (2, 2)])
+def test_p5_plan_takes_scalar_for_other_rows_and_a_view_at_a_4_byte_offset(shape):
+    a = torch.zeros(shape)
+    assert pk.plan_probe("probe_row_build", a)[0] == "scalar"
+    with pytest.raises(ValueError, match="vec4 needs"):
+        pk.plan_probe("probe_row_build", a, variant="vec4")
+    view = torch.zeros(1 + 16 * 64 * 64)[1:].view(16, 64, 64)
+    assert view.data_ptr() % 16 == 4 and pk.plan_probe("probe_row_build", view)[0] == "scalar"
+    with pytest.raises(ValueError, match="vec4 needs"):
+        pk.plan_probe("probe_row_build", view, variant="vec4")
+    with pytest.raises(ValueError, match="not one of"):
+        pk.plan_probe("probe_row_build", a, variant="wide")
+
+
+def emulated_row_build(a: torch.Tensor, variant: str, grid: int, block: int):
+    """P5's kernel in plain torch: thread i < total takes float4 i (vec4) or
+    element i (scalar); one before the last row reads i and i + row, the
+    last row copies. (out, how many threads wrote each element)."""
+    flat, w = a.reshape(-1), 4 if variant == "vec4" else 1
+    row, total = a.numel() // a.shape[0] // w, a.numel() // w
+    i = torch.arange(grid * block)
+    i = i[i < total]
+    j = (i[:, None] * w + torch.arange(w)).reshape(-1)  # the elements of each thread
+    first = (i < total - row).repeat_interleave(w)
+    out = torch.full_like(flat, float("nan"))
+    nxt = flat[torch.where(first, j + row * w, j)]
+    out[j] = torch.where(first, 0.25 * flat[j] + 0.75 * nxt, flat[j])
+    return out.view(a.shape), torch.bincount(j, minlength=a.numel())
+
+
+@pytest.mark.parametrize("shape", [(16, 64, 64), (3, 5, 7, 33), (1, 64), (37,), (5, 4),
+                                   (300, 1000), (7, 5, 6)])
+def test_p5_index_map_covers_every_element_once_and_gives_the_plain_bits(shape):
+    a = torch.from_numpy(np.random.default_rng(len(shape)).random(shape, dtype=np.float32))
+    want = pk.probe_row_build_plain(a)
+    for variant in pk.VARIANTS:
+        if variant == "vec4" and pk.plan_probe("probe_row_build", a)[0] != "vec4":
+            continue
+        _, grid, block = pk.plan_probe("probe_row_build", a, variant=variant)
+        got, writes = emulated_row_build(a, variant, grid, block)
+        assert (writes == 1).all()
+        assert torch.equal(got, want)
+        assert (grid - 1) * block < a.numel() // (4 if variant == "vec4" else 1) <= grid * block
+
+
+def test_p5_wrapper_takes_the_plain_version_on_the_cpu_whatever_the_variant():
+    a = t(probe_cuda.probe_inputs()[0])
+    before = dict(pk.probe_row_build.variants), pk.probe_row_build.launches
+    for variant in (None, *pk.VARIANTS):
+        assert torch.equal(pk.probe_row_build(a, variant=variant), pk.probe_row_build_plain(a))
+    assert (pk.probe_row_build.variants, pk.probe_row_build.launches) == before
+    assert set(before[0]) == set(pk.VARIANTS)
 
 
 # P1 and P3 redesigned: P1 on P2's kernel, P3's tiles and sum order, the planner
