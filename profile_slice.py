@@ -391,8 +391,8 @@ def enc1_rates(model, dev, parent_root):
         diagnostics = {"diag_no_stores_ms": (c1_direct(args, packed, 1 << 1), 1),
                        "diag_no_mma_ms": (c1_direct(args, packed, 2 << 1), 1),
                        "diag_neither_ms": (c1_direct(args, packed, 3 << 1), 1)}
-        # store forms: without .cs, float4 after a quad shuffle, both
-        for name, bits in (("c1_wb_stores_ms", 8), ("c1_quad4_ms", 16), ("c1_quad4_wb_ms", 24)):
+        # store forms: without .cs, float2 (no quad shuffle)
+        for name, bits in (("c1_wb_stores_ms", 8), ("c1_float2_ms", 16)):
             versions[name] = (c1_direct(args, packed, bits << 1), 1)
         if parent:
             old = simt_enc1(args, tuple(want.shape), lib=parent)

@@ -618,14 +618,15 @@ constexpr int kC1MaxN = 64;       // output channels
 constexpr int kC1KP = 56;         // k*k padded to 7 k-steps of 8: a weight row
 constexpr int kC1PH = (kC1TH - 1) * kMaxStride + kMaxK;  // 21 patch rows
 constexpr int kC1PW = (kC1TW - 1) * kMaxStride + kMaxK;  // 69 patch columns
-// a staged row starts at the 16-byte boundary at or before the patch's
-// first column, 0-3 columns early: 3 + 69 columns, 18 float4s
-constexpr int kC1Raw = 72;
-constexpr int kC1Pitch = 72;      // a row of the x*m planes
+// a staged row (x, mask, and the x*m planes in the same layout) starts at
+// the 16-byte boundary at or before the patch's first column, 0-3 columns
+// early: 3 + 69 columns used of 18 float4s
+constexpr int kC1Pitch = 72;
+static_assert(3 + kC1PW <= kC1Pitch && kC1Pitch % 4 == 0, "a staged row holds the patch row");
 
 // shared memory, in floats
 constexpr int kC1SmemW = 2 * kC1MaxN * kC1KP;       // weight planes hi, lo [64][56]
-constexpr int kC1SmemRawBuf = 2 * kC1PH * kC1Raw;   // one buffer: x, mask [21][72]
+constexpr int kC1SmemRawBuf = 2 * kC1PH * kC1Pitch; // one buffer: x, mask [21][72]
 constexpr int kC1SmemPlane = kC1PH * kC1Pitch;      // x*m hi (or fp32), lo [21][72]
 constexpr int kC1SmemRows = kC1PH * kC1TW;          // the mask's row sums [21][32]
 constexpr int kC1SmemFloats = kC1SmemW + 2 * kC1SmemRawBuf + 2 * kC1SmemPlane + kC1SmemRows +
@@ -644,7 +645,7 @@ struct C1Args {
   float* new_mask;        // [B][OH][OW]
   int H, W, Cout, k, stride, pad, OH, OW, tiles_x, tiles_y, tiles;
   int diag;               // timing diagnostics: 1 no stores, 2 no MMA, 4 a last k-step of 8,
-                          // 8 stores without .cs, 16 float4 stores after a quad shuffle
+                          // 8 stores without .cs, 16 float2 stores (no quad shuffle)
 };
 
 // 4 bytes global -> shared, asynchronously; zero-filled when !pred
@@ -672,34 +673,41 @@ __device__ __forceinline__ void c1_tile(const C1Args& p, int t, int& b, int& oy0
   ox0 = tx * kC1TW;
 }
 
-// Tile t's x and mask patch into raw ([x, mask][PH][kC1Raw]): rows from
-// iy0, columns from the 16-byte boundary at or before ix0; zero outside
-// the image (the convolutions' padding). With W % 4 == 0 a float4 of a
-// row lies wholly in the image or wholly out of it.
-__device__ __forceinline__ void c1_stage(const C1Args& p, int t, float* raw, int PH, int cols,
-                                         bool vec) {
+// Tile t's x and mask patch into raw ([x, mask][PH][kC1Pitch]): rows from
+// iy0, kC1Pitch columns from the 16-byte boundary at or before ix0; zero
+// outside the image (the convolutions' padding). With W % 4 == 0 a float4
+// of a row lies wholly in the image or wholly out of it.
+template <bool kVec>
+__device__ __forceinline__ void c1_stage(const C1Args& p, int t, float* raw, int PH) {
   int b, oy0, ox0;
   c1_tile(p, t, b, oy0, ox0);
   const int iy0 = oy0 * p.stride - p.pad;
   const int ixa = (ox0 * p.stride - p.pad) & ~3;
-  const int per = vec ? cols >> 2 : cols;  // copies a row
+  constexpr int per = kVec ? kC1Pitch / 4 : kC1Pitch;  // copies a row
   const int n = 2 * PH * per;
   for (int i = threadIdx.x; i < n; i += kC1Threads) {
     const int arr = i >= PH * per;
     const int rem = i - arr * PH * per;
     const int r = rem / per;
-    const int c = (rem - r * per) << (vec ? 2 : 0);
+    const int c = (rem - r * per) * (kVec ? 4 : 1);
     const int iy = iy0 + r;
     const int ix = ixa + c;
     const bool ok = (unsigned)iy < (unsigned)p.H && (unsigned)ix < (unsigned)p.W;
     const float* src = arr ? p.mask : p.x;
     const float* g = ok ? src + ((b * p.H + iy) * p.W + ix) : src;
-    float* dst = raw + (arr * kC1PH + r) * kC1Raw + c;
-    if (vec)
+    float* dst = raw + (arr * kC1PH + r) * kC1Pitch + c;
+    if (kVec)
       cp_async16(dst, g, ok);
     else
       cp_async4(dst, g, ok);
   }
+}
+
+__device__ __forceinline__ void c1_stage(const C1Args& p, int t, float* raw, int PH, bool vec) {
+  if (vec)
+    c1_stage<true>(p, t, raw, PH);
+  else
+    c1_stage<false>(p, t, raw, PH);
 }
 
 // kMma: the product in 3xTF32 on the tensor cores (a warp's 32 pixels x
@@ -711,7 +719,7 @@ __global__ void __launch_bounds__(kC1Threads, kC1BlocksPerSm) pconv_c1_kernel(co
   extern __shared__ __align__(16) float smem[];
   float* sW = smem;                          // kMma: hi, lo [64][56]; else [56 taps][64] fp32
   float* sRaw = sW + kC1SmemW;               // [2 buffers][x, mask][21][72]
-  float* sPl = sRaw + 2 * kC1SmemRawBuf;     // kMma: x*m hi, lo [21][72]; else x*m [21][72]
+  float* sPl = sRaw + 2 * kC1SmemRawBuf;     // x*m in the staged layout: kMma hi, lo; else fp32
   float* sRows = sPl + 2 * kC1SmemPlane;     // [21][32]
   float* sEpi = sRows + kC1SmemRows;         // bias, bn_a, bn_b [64] each
   int* sTab = reinterpret_cast<int*>(sEpi + 3 * kC1MaxN);  // [56]
@@ -719,12 +727,10 @@ __global__ void __launch_bounds__(kC1Threads, kC1BlocksPerSm) pconv_c1_kernel(co
   const int tid = threadIdx.x;
   const int k = p.k, s = p.stride, kk = k * k;
   const int PH = (kC1TH - 1) * s + k;
-  const int PW = (kC1TW - 1) * s + k;
   // ox0 * s is a multiple of 4, so every tile's patch starts (-pad) & 3
   // columns past its row's 16-byte boundary
   const int shift = (-p.pad) & 3;
   const bool vec = (p.W & 3) == 0;
-  const int cols = vec ? (shift + PW + 3) & ~3 : shift + PW;
 
   // once a block: the weights, the epilogue's vectors, the tap offsets
   if (kMma) {
@@ -755,40 +761,51 @@ __global__ void __launch_bounds__(kC1Threads, kC1BlocksPerSm) pconv_c1_kernel(co
   }
 
   int t = blockIdx.x;
-  if (t < p.tiles) c1_stage(p, t, sRaw, PH, cols, vec);
+  if (t < p.tiles) c1_stage(p, t, sRaw, PH, vec);
   cp_async_commit();
 
   const int lane = tid & 31;
   const int warp = tid >> 5;
   for (int it = 0; t < p.tiles; t += gridDim.x, ++it) {
     const float* rx = sRaw + (it & 1) * kC1SmemRawBuf;
-    const float* rm = rx + kC1PH * kC1Raw;
+    const float* rm = rx + kC1PH * kC1Pitch;
     cp_async_wait<0>();
     __syncthreads();  // this patch landed; the last tile's planes and sums are read
     if (t + (int)gridDim.x < p.tiles)
-      c1_stage(p, t + gridDim.x, sRaw + ((it + 1) & 1) * kC1SmemRawBuf, PH, cols, vec);
+      c1_stage(p, t + gridDim.x, sRaw + ((it + 1) & 1) * kC1SmemRawBuf, PH, vec);
     cp_async_commit();
 
-    // x*m once a patch element: split into TF32 hi and lo, or kept in fp32
-    for (int i = tid; i < PH * PW; i += kC1Threads) {
-      const int r = i / PW;
-      const int c = i - r * PW;
-      const int src = r * kC1Raw + shift + c;
-      const float v = rx[src] * rm[src];
+    // x*m once a staged element, float4 by float4 in the staged layout:
+    // split into TF32 hi and lo, or kept in fp32
+    for (int i = tid; i < PH * kC1Pitch / 4; i += kC1Threads) {
+      const float4 xv = reinterpret_cast<const float4*>(rx)[i];
+      const float4 mv = reinterpret_cast<const float4*>(rm)[i];
+      const float4 v = make_float4(xv.x * mv.x, xv.y * mv.y, xv.z * mv.z, xv.w * mv.w);
       if (kMma) {
-        const float h = __uint_as_float(tf32_rna(v));
-        sPl[r * kC1Pitch + c] = h;
-        sPl[kC1SmemPlane + r * kC1Pitch + c] = __uint_as_float(tf32_rna(v - h));
+        float4 h, l;
+        h.x = __uint_as_float(tf32_rna(v.x));
+        h.y = __uint_as_float(tf32_rna(v.y));
+        h.z = __uint_as_float(tf32_rna(v.z));
+        h.w = __uint_as_float(tf32_rna(v.w));
+        l.x = __uint_as_float(tf32_rna(v.x - h.x));
+        l.y = __uint_as_float(tf32_rna(v.y - h.y));
+        l.z = __uint_as_float(tf32_rna(v.z - h.z));
+        l.w = __uint_as_float(tf32_rna(v.w - h.w));
+        reinterpret_cast<float4*>(sPl)[i] = h;
+        reinterpret_cast<float4*>(sPl + kC1SmemPlane)[i] = l;
       } else {
-        sPl[r * kC1Pitch + c] = v;
+        reinterpret_cast<float4*>(sPl)[i] = v;
       }
     }
-    // the mask's row sums of k at each output column of the tile
+    // the mask's row sums of k at each output column of the tile (the k
+    // loads of a sum issued together)
     for (int i = tid; i < PH * kC1TW; i += kC1Threads) {
       const int r = i / kC1TW;
-      const float* mr = rm + r * kC1Raw + shift + (i - r * kC1TW) * s;
+      const float* mr = rm + r * kC1Pitch + shift + (i - r * kC1TW) * s;
       float sum = 0.f;
-      for (int kx = 0; kx < k; ++kx) sum += mr[kx];
+#pragma unroll
+      for (int kx = 0; kx < kMaxK; ++kx)
+        if (kx < k) sum += mr[kx];
       sRows[i] = sum;
     }
     __syncthreads();
@@ -806,7 +823,9 @@ __global__ void __launch_bounds__(kC1Threads, kC1BlocksPerSm) pconv_c1_kernel(co
       for (int q = 0; q < 4; ++q) {
         const int px = g + 8 * q;
         float sum = 0.f;
-        for (int ky = 0; ky < k; ++ky) sum += sRows[(py * s + ky) * kC1TW + px];
+#pragma unroll
+        for (int ky = 0; ky < kMaxK; ++ky)
+          if (ky < k) sum += sRows[(py * s + ky) * kC1TW + px];
         const bool valid = sum > 0.f;
         ratio[q] = valid ? (float)kk / (sum + 1e-8f) : 0.f;
         const int ox = ox0 + px;
@@ -823,7 +842,7 @@ __global__ void __launch_bounds__(kC1Threads, kC1BlocksPerSm) pconv_c1_kernel(co
           for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
       const float* pHi = sPl;
       const float* pLo = sPl + kC1SmemPlane;
-      const int base = py * s * kC1Pitch + g * s;  // pixel g's window origin
+      const int base = py * s * kC1Pitch + shift + g * s;  // pixel g's window origin
       // k-steps of 8 taps, then one of 4 where 1-4 taps remain (K = 49:
       // 6 of 8 and one of 4, 52 taps on the tensor cores)
       const bool k4 = (kk & 7) != 0 && (kk & 7) <= 4 && !(p.diag & 4);
@@ -928,7 +947,7 @@ __global__ void __launch_bounds__(kC1Threads, kC1BlocksPerSm) pconv_c1_kernel(co
       }
 
       // epilogue: the fragment's pixels g + 8q and channels 8j + 2t, + 1
-      const bool quad4 = p.diag & 16;
+      const bool quad4 = !(p.diag & 16);
 #pragma unroll
       for (int j = 0; j < 8; j += 2) {
         if (j < ntiles) {
@@ -1000,7 +1019,9 @@ __global__ void __launch_bounds__(kC1Threads, kC1BlocksPerSm) pconv_c1_kernel(co
       for (int q = 0; q < 4; ++q) {
         const int px = px0 + q;
         float sum = 0.f;
-        for (int ky = 0; ky < k; ++ky) sum += sRows[(py * s + ky) * kC1TW + px];
+#pragma unroll
+        for (int ky = 0; ky < kMaxK; ++ky)
+          if (ky < k) sum += sRows[(py * s + ky) * kC1TW + px];
         const bool valid = sum > 0.f;
         ratio[q] = valid ? (float)kk / (sum + 1e-8f) : 0.f;
         const int ox = ox0 + px;
@@ -1014,7 +1035,7 @@ __global__ void __launch_bounds__(kC1Threads, kC1BlocksPerSm) pconv_c1_kernel(co
         for (int e = 0; e < 16; ++e) acc[q][e] = 0.f;
       for (int ky = 0; ky < k; ++ky) {
         for (int kx = 0; kx < k; ++kx) {
-          const float* xr = sPl + (py * s + ky) * kC1Pitch + px0 * s + kx;
+          const float* xr = sPl + (py * s + ky) * kC1Pitch + shift + px0 * s + kx;
           const float a[4] = {xr[0], xr[s], xr[2 * s], xr[3 * s]};
           const float* wr = sW + (ky * k + kx) * kC1MaxN + 4 * cg;
 #pragma unroll
