@@ -415,16 +415,17 @@ def phase_build():
             f"build: K2's MMA kernels show no tensor-core instructions: {k2}")
     require(all(r.get("spill_bytes") == 0 for r in k2.values()), f"build: a K2 kernel spills: {k2}")
     c1 = {fn: r for fn, r in k2.items() if "pconv_c1_kernel" in fn}
-    for mode, (fn, r) in enumerate(sorted(c1.items(), reverse=True)):  # <true> (MMA) first
-        smem, blocks, threads, th, tw = (ctypes.c_int() for _ in range(5))
-        check(lib.tg_pconv_c1_info(mode, *(ctypes.byref(v) for v in (smem, blocks, threads, th, tw))),
-              "tg_pconv_c1_info")
+    smem, blocks, threads, th, tw = (ctypes.c_int() for _ in range(5))
+    check(lib.tg_pconv_c1_info(*(ctypes.byref(v) for v in (smem, blocks, threads, th, tw))),
+          "tg_pconv_c1_info")
+    for fn, r in c1.items():
         line("build", k2_c1_kernel=fn, registers=r.get("registers"),
              spill_bytes=r.get("spill_bytes"), hmma=r.get("hmma"), hgmma=r.get("hgmma"),
              dynamic_smem=smem.value, blocks_per_sm=blocks.value, threads=threads.value,
              output_tile=f"{th.value}x{tw.value}")
-    require(len(c1) == 2 and c1[max(c1)].get("hmma", 0) > 0,
-            f"build: K2's one-channel kernels are not 2 with HMMA in the MMA one: {c1}")
+    require(len(c1) == 1 and all(r.get("hmma", 0) > 0 for r in c1.values()) and blocks.value >= 2,
+            f"build: K2's one-channel kernel is not one with HMMA at 2 blocks an SM: {c1}, "
+            f"{blocks.value} blocks an SM")
     smem, blocks, threads, tile = (ctypes.c_int() for _ in range(4))
     check(lib.tg_decoder_tail_info(*(ctypes.byref(v) for v in (smem, blocks, threads, tile))),
           "tg_decoder_tail_info")

@@ -26,9 +26,7 @@ leg measures
      at batch 1, 2, 8 and 32 by CUDA graph replay (chip_smoke.enc1_times:
      one kernel node a call, inputs rotated past the L2) beside its plain
      version, cuDNN's conv alone, the SIMT kernel, the empty launch and
-     its bound, the one-channel kernel's two inner products (3xTF32 MMA
-     and fp32 FMA) through the C entry, and with --parent DIR the
-     parent's enc1 (its SIMT kernel, built alone from DIR's
+     its bound, and with --parent DIR the parent's enc1 (its SIMT kernel, built alone from DIR's
      csrc/pconv_eval.cu, HWIO weights) in turns parent, change, change,
      parent;
   5. the tail per call at batch 1, 8, 16 and 32 on the model's own dec2
@@ -155,7 +153,6 @@ from terra_gan_tpu_torch.ops.cuda.pconv_kernel import (
     fused_pconv_eval_plain,
     pack_pconv_weight,
     pack_pconv_weights,
-    plan_c1,
     plan_stage,
     sm_count,
 )
@@ -343,34 +340,11 @@ def stage_rates(model, dev):
     return rows
 
 
-def c1_direct(args, packed, mode: int):
-    """enc1 on the one-channel kernel through its C entry, with the inner
-    product ``mode`` (0: 3xTF32 MMA on the pack's planes, 1: fp32 FMA on
-    the weight itself); a call of (x, mask)."""
-    x, m, weight, bias, stride, padding, a, bb = args
-    b, h, w, _ = x.shape
-    cout, k = weight.shape[0], weight.shape[-1]
-    oh, ow = (h + 2 * padding - k) // stride + 1, (w + 2 * padding - k) // stride + 1
-    grid = plan_c1(b, oh, ow, sm_count(x.device)).grid
-    w_hi, w_lo = (weight, weight) if mode & 1 else packed
-    lib = load_library()
-
-    def call(xm):
-        out = torch.empty((b, oh, ow, cout), device=x.device)
-        new_mask = torch.empty((b, oh, ow, 1), device=x.device)
-        check(lib.tg_pconv_eval_c1_f32(
-            xm[0].data_ptr(), xm[1].data_ptr(), w_hi.data_ptr(), w_lo.data_ptr(), bias.data_ptr(),
-            a.data_ptr(), bb.data_ptr(), out.data_ptr(), new_mask.data_ptr(), b, h, w, cout, k,
-            stride, padding, grid, mode, torch.cuda.current_stream().cuda_stream), "c1_direct")
-        return out, new_mask
-    return call
-
-
 def enc1_rates(model, dev, parent_root):
-    """enc1 at ENC1_BATCHES by graph replay (chip_smoke.enc1_times), the
-    one-channel kernel's two inner products through its C entry, and with
-    a parent checkout its enc1 (its SIMT kernel) in turns parent, change,
-    change, parent; each version's output held to the plain version."""
+    """enc1 at ENC1_BATCHES by graph replay (chip_smoke.enc1_times), and
+    with a parent checkout its enc1 (its SIMT kernel) in turns parent,
+    change, change, parent; each version's output held to the plain
+    version."""
     parent = build_parent(parent_root, "pconv_eval") if parent_root else None
     if parent:
         parent.tg_pconv_eval_f32.restype = ctypes.c_int
@@ -382,18 +356,7 @@ def enc1_rates(model, dev, parent_root):
         args, _, packed = stage_inputs(model.enc1, SIZE, 1, 0, batch, gen, dev)
         x, m = args[:2]
         want, want_m = fused_pconv_eval_plain(*args)
-        got = fused_pconv_eval(*args, packed=packed)
-        versions = {f"c1_mode{mode}_ms": (c1_direct(args, packed, mode), 1) for mode in (0, 1)}
-        # the MMA with its last k-step of 8 (K padded to 56), then two timing
-        # diagnostics (not outputs): the MMA without its stores, the stores
-        # without the MMA
-        versions["c1_k8_last_ms"] = (c1_direct(args, packed, 4 << 1), 1)
-        diagnostics = {"diag_no_stores_ms": (c1_direct(args, packed, 1 << 1), 1),
-                       "diag_no_mma_ms": (c1_direct(args, packed, 2 << 1), 1),
-                       "diag_neither_ms": (c1_direct(args, packed, 3 << 1), 1)}
-        # store forms: without .cs, float2 (no quad shuffle)
-        for name, bits in (("c1_wb_stores_ms", 8), ("c1_float2_ms", 16)):
-            versions[name] = (c1_direct(args, packed, bits << 1), 1)
+        versions = {}
         if parent:
             old = simt_enc1(args, tuple(want.shape), lib=parent)
             change = lambda xm: fused_pconv_eval(xm[0], xm[1], *args[2:], packed=packed)  # noqa: E731
@@ -406,18 +369,14 @@ def enc1_rates(model, dev, parent_root):
             errs[name] = (out - want).abs().max().item()
             if not (errs[name] <= K2_REL_TOL * want.abs().max().item() and torch.equal(out_m, want_m)):
                 raise RuntimeError(f"enc1 {name} at batch {batch}: {errs[name]} from the plain version")
-        mode0 = versions["c1_mode0_ms"][0]((x, m))
-        torch.cuda.synchronize()
-        if not (torch.equal(mode0[0], got[0]) and torch.equal(mode0[1], got[1])):
-            raise RuntimeError(f"enc1 at batch {batch}: the C entry's MMA is not the wrapper's output")
-        r = enc1_times(args, packed, {**versions, **diagnostics})
+        r = enc1_times(args, packed, versions)
         empty = graph_device_ms(lambda: empty_launch(dev))[0]
         row = dict(batch=batch, empty_ms=empty, vs_bound=r["ms"] / r["bound_ms"],
                    max_abs_errs={k[:-3]: v for k, v in errs.items()}, **r)
         line("enc1", **{k: f"{v:.5f}" if isinstance(v, float) else v for k, v in row.items()
                         if k not in ("max_abs_errs",)})
         rows.append(row)
-        del args, packed, x, m, want, want_m, got, mode0
+        del args, packed, x, m, want, want_m
         torch.cuda.empty_cache()
     return rows
 

@@ -86,25 +86,43 @@
 // - Persistent blocks, two an SM, each walking output tiles of 8 rows x
 //   32 columns (a warp a row); plan_c1 in the wrapper sets the grid.
 // - Each block stages the weight's TF32 planes (the forward's pack,
-//   [Cout][k*k]) once into shared memory, K = k*k padded with zeros to
-//   56 (7 k-steps), with the bias and the folded BatchNorm.
+//   [Cout][k*k]) once into shared memory, rows of k*k padded with zeros to
+//   56, with the bias and the folded BatchNorm.
 // - A tile's x and mask patch (21 x 69 at stride 2, k 7) is staged once
-//   by cp.async, 16 bytes a copy where W % 4 == 0 (4 otherwise), zero
-//   outside the image; the next tile's patch is in flight (a double
-//   buffer) while this one is multiplied. x*m is formed once a patch
-//   element (0 * NaN stays NaN) and split once into TF32 hi and lo planes.
+//   by cp.async as 21 rows of 72 floats from a 16-byte boundary (16 bytes
+//   a copy where W % 4 == 0, 4 otherwise), zero outside the image; the
+//   next tile's patch is in flight (a double buffer) while this one is
+//   multiplied. x*m is formed once a staged element (0 * NaN stays NaN)
+//   and split once into TF32 hi and lo planes of the same layout, a float4
+//   at a time.
 // - The box-sum is separable: row sums of k over the staged mask (every
-//   thread), then each thread's column sums of k for its own pixels; on
-//   0/1 masks every partial sum is an exact integer, so new_mask and the
-//   ratio equal the direct k*k-tap sum's.
-// - The product on the tensor cores in 3xTF32 (mma.sync m16n8k8): M =
-//   a warp's 32 pixels, N = Cout, K = 56; A fragments are gathered from
-//   the split planes through a table of tap offsets (a padded tap reads
-//   tap 0, whose weight row is 0 there), B from the staged planes; per
-//   k-step lo*hi, hi*lo, then hi*hi into one sum from zero.
+//   thread), then each thread's column sums of k for its own pixels, each
+//   sum's loads unrolled to 7 and issued together; on 0/1 masks every
+//   partial sum is an exact integer, so new_mask and the ratio equal the
+//   direct k*k-tap sum's.
+// - The product on the tensor cores in 3xTF32 (mma.sync): M = a warp's 32
+//   pixels, N = Cout; k-steps of 8 taps (m16n8k8), then one of 4 (m16n8k4)
+//   where 1-4 taps remain: K = 49 runs as 52. A fragments are gathered
+//   from the split planes through a table of tap offsets (a padded tap
+//   reads tap 0, whose weight is 0 there), B from the weight planes; per
+//   k-step lo*hi, hi*lo, then hi*hi into one sum from zero, the three
+//   products into one sum 8 MMAs apart.
 // - The epilogue in registers (bias, ratio, the folded BatchNorm, a ReLU
-//   that keeps NaN); each store fills a 32-byte sector of a pixel's
-//   channel row, streamed past the caches (__stcs).
+//   that keeps NaN); a quad's neighbours swap halves of an n-tile pair, so
+//   each thread streams one float4 (__stcs) and a quad fills 64 bytes of a
+//   pixel's channel row.
+// Measured on an H100 80GB HBM3 at 700 W (profile_slice.py --legs stage,
+// device ms by graph replay, batch 8): 0.086 ms against the SIMT kernel's
+// 0.383 and cuDNN's conv alone 0.310. An fp32-FMA inner product over the
+// same blocks (4 pixels x 16 channels a thread) took 0.143-0.149 against
+// the MMA's 0.086-0.110 in the same calls. With the stores left out the
+// kernel took 0.079-0.090, with the MMAs left out 0.064-0.077, with both
+// left out 0.041-0.050: what holds it is the latency of the per-tile
+// phases at 16 warps an SM, not the tensor cores. Issuing the three
+// products into one sum 2 MMAs apart cost 9 %; runtime divisions and
+// k-loops that were not unrolled in the staging, split and box-sum 12 %;
+// float2 stores 2 % over the float4s; K padded to 56 (7 k-steps of 8) 1-2
+// %; plain stores against __stcs nothing.
 //
 // The SIMT variant (pconv_simt_kernel): the other channel counts that are
 // not multiples of 4 (only narrow test models have them). One block per
@@ -625,10 +643,10 @@ constexpr int kC1Pitch = 72;
 static_assert(3 + kC1PW <= kC1Pitch && kC1Pitch % 4 == 0, "a staged row holds the patch row");
 
 // shared memory, in floats
-constexpr int kC1SmemW = 2 * kC1MaxN * kC1KP;       // weight planes hi, lo [64][56]
-constexpr int kC1SmemRawBuf = 2 * kC1PH * kC1Pitch; // one buffer: x, mask [21][72]
-constexpr int kC1SmemPlane = kC1PH * kC1Pitch;      // x*m hi (or fp32), lo [21][72]
-constexpr int kC1SmemRows = kC1PH * kC1TW;          // the mask's row sums [21][32]
+constexpr int kC1SmemW = 2 * kC1MaxN * kC1KP;        // weight planes hi, lo [64][56]
+constexpr int kC1SmemRawBuf = 2 * kC1PH * kC1Pitch;  // one buffer: x, mask [21][72]
+constexpr int kC1SmemPlane = kC1PH * kC1Pitch;       // x*m hi, lo [21][72]
+constexpr int kC1SmemRows = kC1PH * kC1TW;           // the mask's row sums [21][32]
 constexpr int kC1SmemFloats = kC1SmemW + 2 * kC1SmemRawBuf + 2 * kC1SmemPlane + kC1SmemRows +
                               3 * kC1MaxN    // bias, bn_a, bn_b
                               + kC1KP;       // tap offsets (int)
@@ -636,16 +654,14 @@ constexpr int kC1SmemFloats = kC1SmemW + 2 * kC1SmemRawBuf + 2 * kC1SmemPlane + 
 struct C1Args {
   const float* x;         // [B][H][W]
   const float* mask;      // [B][H][W]
-  const float* w_hi;      // [Cout][k*k]: TF32 hi (mode 0) or the fp32 weight (mode 1)
-  const float* w_lo;      // [Cout][k*k]: TF32 residual (mode 0)
+  const float* w_hi;      // [Cout][k*k], TF32 hi
+  const float* w_lo;      // [Cout][k*k], TF32 residual
   const float* bias;
   const float* bn_a;
   const float* bn_b;
   float* out;             // [B][OH][OW][Cout]
   float* new_mask;        // [B][OH][OW]
   int H, W, Cout, k, stride, pad, OH, OW, tiles_x, tiles_y, tiles;
-  int diag;               // timing diagnostics: 1 no stores, 2 no MMA, 4 a last k-step of 8,
-                          // 8 stores without .cs, 16 float2 stores (no quad shuffle)
 };
 
 // 4 bytes global -> shared, asynchronously; zero-filled when !pred
@@ -710,16 +726,11 @@ __device__ __forceinline__ void c1_stage(const C1Args& p, int t, float* raw, int
     c1_stage<false>(p, t, raw, PH);
 }
 
-// kMma: the product in 3xTF32 on the tensor cores (a warp's 32 pixels x
-// Cout, A from the split planes); else in fp32 FMA (a thread's 4 pixels x
-// 16 channels, the weights broadcast from shared memory). The same tiles,
-// staging and box-sum either way.
-template <bool kMma>
 __global__ void __launch_bounds__(kC1Threads, kC1BlocksPerSm) pconv_c1_kernel(const C1Args p) {
   extern __shared__ __align__(16) float smem[];
-  float* sW = smem;                          // kMma: hi, lo [64][56]; else [56 taps][64] fp32
+  float* sW = smem;                          // hi, lo [64][56]
   float* sRaw = sW + kC1SmemW;               // [2 buffers][x, mask][21][72]
-  float* sPl = sRaw + 2 * kC1SmemRawBuf;     // x*m in the staged layout: kMma hi, lo; else fp32
+  float* sPl = sRaw + 2 * kC1SmemRawBuf;     // x*m hi, lo in the staged layout
   float* sRows = sPl + 2 * kC1SmemPlane;     // [21][32]
   float* sEpi = sRows + kC1SmemRows;         // bias, bn_a, bn_b [64] each
   int* sTab = reinterpret_cast<int*>(sEpi + 3 * kC1MaxN);  // [56]
@@ -733,20 +744,12 @@ __global__ void __launch_bounds__(kC1Threads, kC1BlocksPerSm) pconv_c1_kernel(co
   const bool vec = (p.W & 3) == 0;
 
   // once a block: the weights, the epilogue's vectors, the tap offsets
-  if (kMma) {
-    for (int i = tid; i < kC1MaxN * kC1KP; i += kC1Threads) {
-      const int n = i / kC1KP;
-      const int kx = i - n * kC1KP;
-      const bool ok = n < p.Cout && kx < kk;
-      sW[i] = ok ? p.w_hi[n * kk + kx] : 0.f;
-      sW[kC1MaxN * kC1KP + i] = ok ? p.w_lo[n * kk + kx] : 0.f;
-    }
-  } else {
-    for (int i = tid; i < kC1KP * kC1MaxN; i += kC1Threads) {
-      const int tap = i / kC1MaxN;
-      const int n = i - tap * kC1MaxN;
-      sW[i] = n < p.Cout && tap < kk ? p.w_hi[n * kk + tap] : 0.f;
-    }
+  for (int i = tid; i < kC1MaxN * kC1KP; i += kC1Threads) {
+    const int n = i / kC1KP;
+    const int kx = i - n * kC1KP;
+    const bool ok = n < p.Cout && kx < kk;
+    sW[i] = ok ? p.w_hi[n * kk + kx] : 0.f;
+    sW[kC1MaxN * kC1KP + i] = ok ? p.w_lo[n * kk + kx] : 0.f;
   }
   for (int i = tid; i < kC1MaxN; i += kC1Threads) {
     const bool ok = i < p.Cout;
@@ -765,7 +768,18 @@ __global__ void __launch_bounds__(kC1Threads, kC1BlocksPerSm) pconv_c1_kernel(co
   cp_async_commit();
 
   const int lane = tid & 31;
-  const int warp = tid >> 5;
+  const int g = lane >> 2;  // the fragment's row (A, C) or column (B)
+  const int tq = lane & 3;  // the fragment's K index (A, B) or column pair (C)
+  const int py = tid >> 5;  // the warp's output row of the tile
+  // k-steps of 8 taps, then one of 4 where 1-4 taps remain (K = 49: 6 of 8
+  // and one of 4, 52 taps on the tensor cores)
+  const bool k4 = (kk & 7) != 0 && (kk & 7) <= 4;
+  const int ksteps = k4 ? kk >> 3 : (kk + 7) >> 3;
+  const int ntiles = p.Cout >> 3;
+  const float* pHi = sPl;
+  const float* pLo = sPl + kC1SmemPlane;
+  const int base = py * s * kC1Pitch + shift + g * s;  // pixel g's window origin
+
   for (int it = 0; t < p.tiles; t += gridDim.x, ++it) {
     const float* rx = sRaw + (it & 1) * kC1SmemRawBuf;
     const float* rm = rx + kC1PH * kC1Pitch;
@@ -775,27 +789,20 @@ __global__ void __launch_bounds__(kC1Threads, kC1BlocksPerSm) pconv_c1_kernel(co
       c1_stage(p, t + gridDim.x, sRaw + ((it + 1) & 1) * kC1SmemRawBuf, PH, vec);
     cp_async_commit();
 
-    // x*m once a staged element, float4 by float4 in the staged layout:
-    // split into TF32 hi and lo, or kept in fp32
+    // x*m once a staged element, float4 by float4 in the staged layout,
+    // split into TF32 hi and lo
     for (int i = tid; i < PH * kC1Pitch / 4; i += kC1Threads) {
       const float4 xv = reinterpret_cast<const float4*>(rx)[i];
       const float4 mv = reinterpret_cast<const float4*>(rm)[i];
-      const float4 v = make_float4(xv.x * mv.x, xv.y * mv.y, xv.z * mv.z, xv.w * mv.w);
-      if (kMma) {
-        float4 h, l;
-        h.x = __uint_as_float(tf32_rna(v.x));
-        h.y = __uint_as_float(tf32_rna(v.y));
-        h.z = __uint_as_float(tf32_rna(v.z));
-        h.w = __uint_as_float(tf32_rna(v.w));
-        l.x = __uint_as_float(tf32_rna(v.x - h.x));
-        l.y = __uint_as_float(tf32_rna(v.y - h.y));
-        l.z = __uint_as_float(tf32_rna(v.z - h.z));
-        l.w = __uint_as_float(tf32_rna(v.w - h.w));
-        reinterpret_cast<float4*>(sPl)[i] = h;
-        reinterpret_cast<float4*>(sPl + kC1SmemPlane)[i] = l;
-      } else {
-        reinterpret_cast<float4*>(sPl)[i] = v;
+      const float v[4] = {xv.x * mv.x, xv.y * mv.y, xv.z * mv.z, xv.w * mv.w};
+      float h[4], l[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        h[e] = __uint_as_float(tf32_rna(v[e]));
+        l[e] = __uint_as_float(tf32_rna(v[e] - h[e]));
       }
+      reinterpret_cast<float4*>(sPl)[i] = make_float4(h[0], h[1], h[2], h[3]);
+      reinterpret_cast<float4*>(sPl + kC1SmemPlane)[i] = make_float4(l[0], l[1], l[2], l[3]);
     }
     // the mask's row sums of k at each output column of the tile (the k
     // loads of a sum issued together)
@@ -812,264 +819,172 @@ __global__ void __launch_bounds__(kC1Threads, kC1BlocksPerSm) pconv_c1_kernel(co
 
     int b, oy0, ox0;
     c1_tile(p, t, b, oy0, ox0);
-    if (kMma) {
-      // warp: output row py = warp, pixels g, g+8 (m-tile 0), g+16, g+24 (1)
-      const int g = lane >> 2;
-      const int tq = lane & 3;
-      const int py = warp;
-      const int oy = oy0 + py;
-      float ratio[4];  // pixel g + 8q: column sums of the row sums
+    const int oy = oy0 + py;
+    // the thread's pixels g + 8q: column sums of the row sums, the ratio
+    // and the new mask
+    float ratio[4];
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int px = g + 8 * q;
-        float sum = 0.f;
+    for (int q = 0; q < 4; ++q) {
+      const int px = g + 8 * q;
+      float sum = 0.f;
 #pragma unroll
-        for (int ky = 0; ky < kMaxK; ++ky)
-          if (ky < k) sum += sRows[(py * s + ky) * kC1TW + px];
-        const bool valid = sum > 0.f;
-        ratio[q] = valid ? (float)kk / (sum + 1e-8f) : 0.f;
-        const int ox = ox0 + px;
-        if (tq == 0 && oy < p.OH && ox < p.OW)
-          p.new_mask[(b * p.OH + oy) * p.OW + ox] = valid ? 1.f : 0.f;
-      }
+      for (int ky = 0; ky < kMaxK; ++ky)
+        if (ky < k) sum += sRows[(py * s + ky) * kC1TW + px];
+      const bool valid = sum > 0.f;
+      ratio[q] = valid ? (float)kk / (sum + 1e-8f) : 0.f;
+      const int ox = ox0 + px;
+      if (tq == 0 && oy < p.OH && ox < p.OW)
+        p.new_mask[(b * p.OH + oy) * p.OW + ox] = valid ? 1.f : 0.f;
+    }
 
-      float acc[2][8][4];
+    // the warp's 32 pixels (m-tiles g, g+8 and g+16, g+24) x Cout
+    float acc[2][8][4];
 #pragma unroll
-      for (int i = 0; i < 2; ++i)
+    for (int i = 0; i < 2; ++i)
 #pragma unroll
-        for (int j = 0; j < 8; ++j)
+      for (int j = 0; j < 8; ++j)
 #pragma unroll
-          for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-      const float* pHi = sPl;
-      const float* pLo = sPl + kC1SmemPlane;
-      const int base = py * s * kC1Pitch + shift + g * s;  // pixel g's window origin
-      // k-steps of 8 taps, then one of 4 where 1-4 taps remain (K = 49:
-      // 6 of 8 and one of 4, 52 taps on the tensor cores)
-      const bool k4 = (kk & 7) != 0 && (kk & 7) <= 4 && !(p.diag & 4);
-      const int ksteps = (p.diag & 2) ? 0 : k4 ? kk >> 3 : (kk + 7) >> 3;
-      const int ntiles = p.Cout >> 3;
-      // K order within a k-step: the quad's logical index t is tap 8st + 2t
-      // and t + 4 the next, identically for A and B (a float2 of B)
+        for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+    // K order within a k-step: the quad's logical index t is tap 8st + 2t
+    // and t + 4 the next, identically for A and B (a float2 of B)
 #pragma unroll
-      for (int st = 0; st < kC1KP / 8; ++st) {
-        if (st < ksteps) {
-          const int2 o = *reinterpret_cast<const int2*>(sTab + 8 * st + 2 * tq);
-          uint32_t ahi[2][4], alo[2][4];
-#pragma unroll
-          for (int i = 0; i < 2; ++i) {
-            const int b0 = base + 16 * i * s;
-            const int b1 = b0 + 8 * s;
-            // (g, t), (g+8, t), (g, t+4), (g+8, t+4)
-            const int at[4] = {b0 + o.x, b1 + o.x, b0 + o.y, b1 + o.y};
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              ahi[i][e] = __float_as_uint(pHi[at[e]]);
-              alo[i][e] = __float_as_uint(pLo[at[e]]);
-            }
-          }
-          // four n-tiles at a time: the three products into one sum lie 8
-          // MMAs apart, past the MMA's latency (mma_tf32 is issued in order)
-#pragma unroll
-          for (int jg = 0; jg < 8; jg += 4) {
-            if (jg < ntiles) {
-              uint32_t bh[4][2], bl[4][2];
-#pragma unroll
-              for (int jj = 0; jj < 4; ++jj) {
-                const float* wr = sW + (8 * (jg + jj) + g) * kC1KP + 8 * st + 2 * tq;
-                const float2 wh = *reinterpret_cast<const float2*>(wr);
-                const float2 wl = *reinterpret_cast<const float2*>(wr + kC1MaxN * kC1KP);
-                bh[jj][0] = __float_as_uint(wh.x);
-                bh[jj][1] = __float_as_uint(wh.y);
-                bl[jj][0] = __float_as_uint(wl.x);
-                bl[jj][1] = __float_as_uint(wl.y);
-              }
-              // the small products first, hi*hi last, into the same sum; an
-              // n-tile past Cout (whose weights are 0) is skipped
-#pragma unroll
-              for (int jj = 0; jj < 4; ++jj)
-#pragma unroll
-                for (int i = 0; i < 2; ++i)
-                  if (jg + jj < ntiles) mma_tf32(acc[i][jg + jj], alo[i], bh[jj][0], bh[jj][1]);
-#pragma unroll
-              for (int jj = 0; jj < 4; ++jj)
-#pragma unroll
-                for (int i = 0; i < 2; ++i)
-                  if (jg + jj < ntiles) mma_tf32(acc[i][jg + jj], ahi[i], bl[jj][0], bl[jj][1]);
-#pragma unroll
-              for (int jj = 0; jj < 4; ++jj)
-#pragma unroll
-                for (int i = 0; i < 2; ++i)
-                  if (jg + jj < ntiles) mma_tf32(acc[i][jg + jj], ahi[i], bh[jj][0], bh[jj][1]);
-            }
-          }
-        }
-      }
-      if (k4 && !(p.diag & 2)) {
-        // the last taps as m16n8k4: the quad's index t is tap 8 ksteps + t
-        const int o = sTab[8 * ksteps + tq];
-        uint32_t ahi[2][2], alo[2][2];
+    for (int st = 0; st < kC1KP / 8; ++st) {
+      if (st < ksteps) {
+        const int2 o = *reinterpret_cast<const int2*>(sTab + 8 * st + 2 * tq);
+        uint32_t ahi[2][4], alo[2][4];
 #pragma unroll
         for (int i = 0; i < 2; ++i) {
-          const int b0 = base + 16 * i * s + o;  // (g, t), (g+8, t)
+          const int b0 = base + 16 * i * s;
+          const int b1 = b0 + 8 * s;
+          // (g, t), (g+8, t), (g, t+4), (g+8, t+4)
+          const int at[4] = {b0 + o.x, b1 + o.x, b0 + o.y, b1 + o.y};
 #pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            ahi[i][h] = __float_as_uint(pHi[b0 + 8 * h * s]);
-            alo[i][h] = __float_as_uint(pLo[b0 + 8 * h * s]);
+          for (int e = 0; e < 4; ++e) {
+            ahi[i][e] = __float_as_uint(pHi[at[e]]);
+            alo[i][e] = __float_as_uint(pLo[at[e]]);
           }
         }
+        // four n-tiles at a time: the three products into one sum lie 8
+        // MMAs apart, past the MMA's latency (mma_tf32 is issued in order)
 #pragma unroll
         for (int jg = 0; jg < 8; jg += 4) {
           if (jg < ntiles) {
-            uint32_t bh[4], bl[4];
+            uint32_t bh[4][2], bl[4][2];
 #pragma unroll
             for (int jj = 0; jj < 4; ++jj) {
-              const float* wr = sW + (8 * (jg + jj) + g) * kC1KP + 8 * ksteps + tq;
-              bh[jj] = __float_as_uint(wr[0]);
-              bl[jj] = __float_as_uint(wr[kC1MaxN * kC1KP]);
+              const float* wr = sW + (8 * (jg + jj) + g) * kC1KP + 8 * st + 2 * tq;
+              const float2 wh = *reinterpret_cast<const float2*>(wr);
+              const float2 wl = *reinterpret_cast<const float2*>(wr + kC1MaxN * kC1KP);
+              bh[jj][0] = __float_as_uint(wh.x);
+              bh[jj][1] = __float_as_uint(wh.y);
+              bl[jj][0] = __float_as_uint(wl.x);
+              bl[jj][1] = __float_as_uint(wl.y);
             }
+            // the small products first, hi*hi last, into the same sum; an
+            // n-tile past Cout (whose weights are 0) is skipped
 #pragma unroll
             for (int jj = 0; jj < 4; ++jj)
 #pragma unroll
               for (int i = 0; i < 2; ++i)
-                if (jg + jj < ntiles) mma_tf32_k4(acc[i][jg + jj], alo[i][0], alo[i][1], bh[jj]);
+                if (jg + jj < ntiles) mma_tf32(acc[i][jg + jj], alo[i], bh[jj][0], bh[jj][1]);
 #pragma unroll
             for (int jj = 0; jj < 4; ++jj)
 #pragma unroll
               for (int i = 0; i < 2; ++i)
-                if (jg + jj < ntiles) mma_tf32_k4(acc[i][jg + jj], ahi[i][0], ahi[i][1], bl[jj]);
+                if (jg + jj < ntiles) mma_tf32(acc[i][jg + jj], ahi[i], bl[jj][0], bl[jj][1]);
 #pragma unroll
             for (int jj = 0; jj < 4; ++jj)
 #pragma unroll
               for (int i = 0; i < 2; ++i)
-                if (jg + jj < ntiles) mma_tf32_k4(acc[i][jg + jj], ahi[i][0], ahi[i][1], bh[jj]);
+                if (jg + jj < ntiles) mma_tf32(acc[i][jg + jj], ahi[i], bh[jj][0], bh[jj][1]);
           }
         }
       }
+    }
+    if (k4) {
+      // the last taps as m16n8k4: the quad's index t is tap 8 ksteps + t
+      const int o = sTab[8 * ksteps + tq];
+      uint32_t ahi[2][2], alo[2][2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {  // (g, t), (g+8, t)
+          const int at = base + (16 * i + 8 * h) * s + o;
+          ahi[i][h] = __float_as_uint(pHi[at]);
+          alo[i][h] = __float_as_uint(pLo[at]);
+        }
+      }
+#pragma unroll
+      for (int jg = 0; jg < 8; jg += 4) {
+        if (jg < ntiles) {
+          uint32_t bh[4], bl[4];
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj) {
+            const float* wr = sW + (8 * (jg + jj) + g) * kC1KP + 8 * ksteps + tq;
+            bh[jj] = __float_as_uint(wr[0]);
+            bl[jj] = __float_as_uint(wr[kC1MaxN * kC1KP]);
+          }
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+            for (int i = 0; i < 2; ++i)
+              if (jg + jj < ntiles) mma_tf32_k4(acc[i][jg + jj], alo[i][0], alo[i][1], bh[jj]);
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+            for (int i = 0; i < 2; ++i)
+              if (jg + jj < ntiles) mma_tf32_k4(acc[i][jg + jj], ahi[i][0], ahi[i][1], bl[jj]);
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+            for (int i = 0; i < 2; ++i)
+              if (jg + jj < ntiles) mma_tf32_k4(acc[i][jg + jj], ahi[i][0], ahi[i][1], bh[jj]);
+        }
+      }
+    }
 
-      // epilogue: the fragment's pixels g + 8q and channels 8j + 2t, + 1
-      const bool quad4 = !(p.diag & 16);
+    // epilogue: the fragment's pixels g + 8q and channels 8j + 2t, + 1;
+    // for an n-tile pair (j, j + 1) the quad's neighbours swap halves, so
+    // an even t stores channels 8j + 2t .. + 3 and an odd t 8(j+1) + 2(t-1)
+    // .. + 3 as one float4: a quad's store fills 64 bytes of a pixel's row
 #pragma unroll
-      for (int j = 0; j < 8; j += 2) {
-        if (j < ntiles) {
-          const bool pair = j + 1 < ntiles;
-          float2 bv[2], av[2], cv[2];
+    for (int j = 0; j < 8; j += 2) {
+      if (j < ntiles) {
+        const bool pair = j + 1 < ntiles;
+        float2 bv[2], av[2], cv[2];
 #pragma unroll
-          for (int jj = 0; jj < 2; ++jj) {
-            const int n = 8 * (j + jj) + 2 * tq;
-            bv[jj] = *reinterpret_cast<const float2*>(sEpi + n);
-            av[jj] = *reinterpret_cast<const float2*>(sEpi + kC1MaxN + n);
-            cv[jj] = *reinterpret_cast<const float2*>(sEpi + 2 * kC1MaxN + n);
-          }
-#pragma unroll
-          for (int i = 0; i < 2; ++i) {
-#pragma unroll
-            for (int h = 0; h < 2; ++h) {
-              const float r = ratio[2 * i + h];
-              float2 o[2];
-#pragma unroll
-              for (int jj = 0; jj < 2; ++jj) {
-                o[jj].x = relu_keep_nan(((acc[i][j + jj][2 * h] + bv[jj].x) * r) * av[jj].x + cv[jj].x);
-                o[jj].y =
-                    relu_keep_nan(((acc[i][j + jj][2 * h + 1] + bv[jj].y) * r) * av[jj].y + cv[jj].y);
-              }
-              const int ox = ox0 + 16 * i + 8 * h + g;
-              const bool in = oy < p.OH && ox < p.OW;
-              float* const row = p.out + (size_t)((b * p.OH + oy) * p.OW + ox) * p.Cout;
-              if (quad4 && pair) {
-                // the quad's neighbours swap halves: an even t takes channels
-                // 8j + 2t .. + 3, an odd t 8(j+1) + 2(t-1) .. + 3
-                const bool odd = tq & 1;
-                const float2 give = odd ? o[0] : o[1];
-                const float2 got = make_float2(__shfl_xor_sync(0xffffffffu, give.x, 1),
-                                               __shfl_xor_sync(0xffffffffu, give.y, 1));
-                const float4 q = odd ? make_float4(got.x, got.y, o[1].x, o[1].y)
-                                     : make_float4(o[0].x, o[0].y, got.x, got.y);
-                float* const dst = row + (odd ? 8 * (j + 1) + 2 * (tq - 1) : 8 * j + 2 * tq);
-                if (in && (!(p.diag & 1) || q.x == 12345.f)) {
-                  if (p.diag & 8)
-                    *reinterpret_cast<float4*>(dst) = q;
-                  else
-                    __stcs(reinterpret_cast<float4*>(dst), q);
-                }
-              } else {
-#pragma unroll
-                for (int jj = 0; jj < 2; ++jj) {
-                  float2* const dst = reinterpret_cast<float2*>(row + 8 * (j + jj) + 2 * tq);
-                  if (in && (jj == 0 || pair) && (!(p.diag & 1) || o[jj].x == 12345.f)) {
-                    if (p.diag & 8)
-                      *dst = o[jj];
-                    else
-                      __stcs(dst, o[jj]);
-                  }
-                }
-              }
-            }
-          }
+        for (int jj = 0; jj < 2; ++jj) {
+          const int n = 8 * (j + jj) + 2 * tq;
+          bv[jj] = *reinterpret_cast<const float2*>(sEpi + n);
+          av[jj] = *reinterpret_cast<const float2*>(sEpi + kC1MaxN + n);
+          cv[jj] = *reinterpret_cast<const float2*>(sEpi + 2 * kC1MaxN + n);
         }
-      }
-    } else {
-      // thread: pixels px0 .. px0+3 of row py, channels 16c + 4cg + e
-      const int pg = tid >> 2;
-      const int cg = tid & 3;
-      const int py = pg >> 3;
-      const int px0 = (pg & 7) * 4;
-      const int oy = oy0 + py;
-      float ratio[4];
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int px = px0 + q;
-        float sum = 0.f;
+        for (int i = 0; i < 2; ++i) {
 #pragma unroll
-        for (int ky = 0; ky < kMaxK; ++ky)
-          if (ky < k) sum += sRows[(py * s + ky) * kC1TW + px];
-        const bool valid = sum > 0.f;
-        ratio[q] = valid ? (float)kk / (sum + 1e-8f) : 0.f;
-        const int ox = ox0 + px;
-        if (cg == 0 && oy < p.OH && ox < p.OW)
-          p.new_mask[(b * p.OH + oy) * p.OW + ox] = valid ? 1.f : 0.f;
-      }
-      float acc[4][16];
+          for (int h = 0; h < 2; ++h) {
+            const float r = ratio[2 * i + h];
+            float2 o[2];
 #pragma unroll
-      for (int q = 0; q < 4; ++q)
-#pragma unroll
-        for (int e = 0; e < 16; ++e) acc[q][e] = 0.f;
-      for (int ky = 0; ky < k; ++ky) {
-        for (int kx = 0; kx < k; ++kx) {
-          const float* xr = sPl + (py * s + ky) * kC1Pitch + shift + px0 * s + kx;
-          const float a[4] = {xr[0], xr[s], xr[2 * s], xr[3 * s]};
-          const float* wr = sW + (ky * k + kx) * kC1MaxN + 4 * cg;
-#pragma unroll
-          for (int c = 0; c < 4; ++c) {
-            const float4 w4 = *reinterpret_cast<const float4*>(wr + 16 * c);
-#pragma unroll
-            for (int q = 0; q < 4; ++q) {
-              acc[q][4 * c + 0] += a[q] * w4.x;
-              acc[q][4 * c + 1] += a[q] * w4.y;
-              acc[q][4 * c + 2] += a[q] * w4.z;
-              acc[q][4 * c + 3] += a[q] * w4.w;
+            for (int jj = 0; jj < 2; ++jj) {
+              o[jj].x = relu_keep_nan(((acc[i][j + jj][2 * h] + bv[jj].x) * r) * av[jj].x + cv[jj].x);
+              o[jj].y =
+                  relu_keep_nan(((acc[i][j + jj][2 * h + 1] + bv[jj].y) * r) * av[jj].y + cv[jj].y);
             }
-          }
-        }
-      }
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int n = 16 * c + 4 * cg;
-        if (n < p.Cout) {
-          const float4 bv = *reinterpret_cast<const float4*>(sEpi + n);
-          const float4 av = *reinterpret_cast<const float4*>(sEpi + kC1MaxN + n);
-          const float4 cv = *reinterpret_cast<const float4*>(sEpi + 2 * kC1MaxN + n);
-#pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            const int ox = ox0 + px0 + q;
-            if (oy < p.OH && ox < p.OW) {
-              const float r = ratio[q];
-              float4 o;
-              o.x = relu_keep_nan(((acc[q][4 * c + 0] + bv.x) * r) * av.x + cv.x);
-              o.y = relu_keep_nan(((acc[q][4 * c + 1] + bv.y) * r) * av.y + cv.y);
-              o.z = relu_keep_nan(((acc[q][4 * c + 2] + bv.z) * r) * av.z + cv.z);
-              o.w = relu_keep_nan(((acc[q][4 * c + 3] + bv.w) * r) * av.w + cv.w);
-              const int pix = (b * p.OH + oy) * p.OW + ox;
-              __stcs(reinterpret_cast<float4*>(p.out + (size_t)pix * p.Cout + n), o);
+            const int ox = ox0 + 16 * i + 8 * h + g;
+            const bool in = oy < p.OH && ox < p.OW;
+            float* const row = p.out + (size_t)((b * p.OH + oy) * p.OW + ox) * p.Cout;
+            if (pair) {
+              const bool odd = tq & 1;
+              const float2 give = odd ? o[0] : o[1];
+              const float2 got = make_float2(__shfl_xor_sync(0xffffffffu, give.x, 1),
+                                             __shfl_xor_sync(0xffffffffu, give.y, 1));
+              const float4 q = odd ? make_float4(got.x, got.y, o[1].x, o[1].y)
+                                   : make_float4(o[0].x, o[0].y, got.x, got.y);
+              float* const dst = row + (odd ? 8 * (j + 1) + 2 * (tq - 1) : 8 * j + 2 * tq);
+              if (in) __stcs(reinterpret_cast<float4*>(dst), q);
+            } else if (in) {  // the last of an odd number of n-tiles
+              __stcs(reinterpret_cast<float2*>(row + 8 * j + 2 * tq), o[0]);
             }
           }
         }
@@ -1208,25 +1123,15 @@ extern "C" int tg_pconv_eval_mma_f32(const float* xa, const float* xb, const flo
                    : launch_mma<4, 2>(a, (cudaStream_t)stream);
 }
 
-namespace {
-
-const void* c1_kernel(int mode) {
-  return mode == 0 ? reinterpret_cast<const void*>(pconv_c1_kernel<true>)
-                   : reinterpret_cast<const void*>(pconv_c1_kernel<false>);
-}
-
-}  // namespace
-
-// The one-channel variant's dynamic shared memory and the blocks an SM
-// holds (mode 0: 3xTF32 MMA, 1: fp32 FMA).
-extern "C" int tg_pconv_c1_info(int mode, int* smem_bytes, int* blocks_per_sm, int* threads,
-                                int* tile_h, int* tile_w) {
-  if (mode != 0 && mode != 1) return (int)cudaErrorInvalidValue;
+// The one-channel variant's dynamic shared memory, the blocks an SM holds,
+// its threads and output tile.
+extern "C" int tg_pconv_c1_info(int* smem_bytes, int* blocks_per_sm, int* threads, int* tile_h,
+                                int* tile_w) {
   const int smem = (int)sizeof(float) * kC1SmemFloats;
-  cudaError_t err = cudaFuncSetAttribute(c1_kernel(mode),
+  cudaError_t err = cudaFuncSetAttribute(pconv_c1_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, c1_kernel(mode), kC1Threads,
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, pconv_c1_kernel, kC1Threads,
                                                       smem);
   *smem_bytes = smem;
   *threads = kC1Threads;
@@ -1235,22 +1140,18 @@ extern "C" int tg_pconv_c1_info(int mode, int* smem_bytes, int* blocks_per_sm, i
   return (int)err;
 }
 
-// The one-channel variant (enc1): x, mask [B][H][W] (one channel); mode 0
-// takes w_hi, w_lo, pack_pconv_weight's planes ([Cout][k][k][1]), mode 1
-// the fp32 weight as w_hi ([Cout][1][k][k], the same memory order);
-// Cout a multiple of 8 up to 64; grid persistent blocks (the wrapper's
+// The one-channel variant (enc1), 3xTF32: x, mask [B][H][W] (one
+// channel); w_hi, w_lo pack_pconv_weight's planes ([Cout][k][k][1]); Cout
+// a multiple of 8 up to 64; grid persistent blocks (the wrapper's
 // plan_c1) walk the tiles of 8 x 32 outputs; B*H*W and B*OH*OW < 2^31.
 extern "C" int tg_pconv_eval_c1_f32(const float* x, const float* mask, const float* w_hi,
                                     const float* w_lo, const float* bias, const float* bn_a,
                                     const float* bn_b, float* out, float* new_mask, int B, int H,
                                     int W, int Cout, int k, int stride, int pad, int grid,
-                                    int mode, void* stream) {
-  const int diag = mode >> 1;  // timing diagnostics (C1Args::diag)
-  mode &= 1;
+                                    void* stream) {
   if (k < 1 || k > kMaxK || stride < 1 || stride > kMaxStride || pad < 0 || Cout < 8 ||
       Cout > kC1MaxN || Cout % 8 != 0 || B < 1 || H < 1 || W < 1 || grid < 1 ||
-      (mode != 0 && mode != 1) || (mode == 0 && w_lo == nullptr) ||
-      (long long)B * H * W >= (1LL << 31)) {
+      w_hi == nullptr || w_lo == nullptr || (long long)B * H * W >= (1LL << 31)) {
     return (int)cudaErrorInvalidValue;
   }
   const int OH = (H + 2 * pad - k) / stride + 1;
@@ -1281,15 +1182,12 @@ extern "C" int tg_pconv_eval_c1_f32(const float* x, const float* mask, const flo
   a.tiles_x = tiles_x;
   a.tiles_y = tiles_y;
   a.tiles = (int)tiles;
-  a.diag = diag;
   const int smem = (int)sizeof(float) * kC1SmemFloats;
-  cudaError_t err = cudaFuncSetAttribute(c1_kernel(mode),
+  // above 48 KB only after this; per call, since it is set per device
+  cudaError_t err = cudaFuncSetAttribute(pconv_c1_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  if (mode == 0)
-    pconv_c1_kernel<true><<<grid, kC1Threads, smem, (cudaStream_t)stream>>>(a);
-  else
-    pconv_c1_kernel<false><<<grid, kC1Threads, smem, (cudaStream_t)stream>>>(a);
+  pconv_c1_kernel<<<grid, kC1Threads, smem, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 

@@ -25,9 +25,9 @@ note there gives the design. It has three variants, picked by shape in
 - ``mma_c1``: one input channel (enc1 at every width, Cout a multiple of
   8 up to 64): persistent blocks over tiles of 8 x 32 outputs
   (``plan_c1``), the patch staged once a tile and split into TF32 planes,
-  a separable box-sum, 3xTF32 on the tensor cores with K = k*k padded
-  to 56. It reads the pack's planes (``[Cout][k][k][1]``) and copies
-  nothing of the weight.
+  a separable box-sum, 3xTF32 on the tensor cores in k-steps of 8 taps
+  and a last of 4 (K = 49 as 52). It reads the pack's planes
+  (``[Cout][k][k][1]``) and copies nothing of the weight.
 - ``simt``: fp32 FMA, for the rest (channel counts that are not
   multiples of 4, beside enc1's).
 
@@ -363,7 +363,7 @@ def fused_pconv_eval(
             err = lib.tg_pconv_eval_c1_f32(
                 x.data_ptr(), mask.data_ptr(), w_hi.data_ptr(), w_lo.data_ptr(),
                 bias.data_ptr(), bn_a.data_ptr(), bn_b.data_ptr(), out.data_ptr(),
-                new_mask.data_ptr(), b, h, w, cout, k, stride, padding, c1.grid, 0, stream,
+                new_mask.data_ptr(), b, h, w, cout, k, stride, padding, c1.grid, stream,
             )
             check(err, "fused_pconv_eval")
             variants["mma_c1"] += 1
