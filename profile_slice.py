@@ -100,8 +100,8 @@ calls).
 
 It prints one line per figure and writes all of them as JSON to --out
 (and the traces beside it); --legs picks some of the legs (inference,
-stage, tail, serve, train, probes, k1, turns; all but turns by default;
-enc1 is the stage leg's enc1 part alone). Without CUDA it exits nonzero.
+stage, tail, serve, train, probes, k1, turns; all but turns by default).
+Without CUDA it exits nonzero.
 """
 
 from __future__ import annotations
@@ -169,8 +169,8 @@ STAGE_BATCHES = (1, 8)
 ENC1_BATCHES = (1, 2, 8, 32)
 K1_BATCHES = (1, 2, 8, 32)
 SWEEP_BATCHES = (8,)  # where the k1 leg times every plan the planner could take
-LEGS = ("inference", "stage", "tail", "serve", "train", "probes", "k1", "enc1", "turns")
-DEFAULT_LEGS = LEGS[:-2]  # the stage leg holds enc1; the turns leg needs --parent
+LEGS = ("inference", "stage", "tail", "serve", "train", "probes", "k1", "turns")
+DEFAULT_LEGS = LEGS[:-1]  # the turns leg needs --parent
 TURN_BATCHES = (1, 8, 32)
 TRAIN_BATCHES = (8, 16, 32)
 TRAIN_STEPS = 5
@@ -867,8 +867,8 @@ def main() -> None:
     ap.add_argument("--legs", default=",".join(DEFAULT_LEGS),
                     help=f"comma-separated legs to run, of {','.join(LEGS)}")
     ap.add_argument("--parent", type=Path, default=None,
-                    help="stage, enc1, probes, k1 and turns legs: a parent checkout whose "
-                         "enc1, P5, K1 and eval forward run in turns")
+                    help="stage, probes, k1 and turns legs: a parent checkout whose enc1, "
+                         "P5, K1 and eval forward run in turns")
     args = ap.parse_args()
     legs = set(args.legs.split(","))
     if not legs <= set(LEGS):
@@ -889,7 +889,6 @@ def main() -> None:
                       trace=trace(model, dev, imgs, masks, args.out))
     if "stage" in legs:
         result["stages"] = stage_rates(model, dev)
-    if legs & {"stage", "enc1"}:
         result["enc1"] = enc1_rates(model, dev, args.parent)
     if "tail" in legs:
         result["tail"] = tail_rates(model, dev, imgs, masks)

@@ -186,9 +186,9 @@ def plan_probe(name: str, a: torch.Tensor, *others: torch.Tensor, variant=None):
     (scalar) in a thread. P5: a float4 (vec4) or an element (scalar) a
     thread, ROW_BUILD_THREADS a block, every one in one pass. P3: one
     block a tile of ``rows`` rows by 4 * BQ columns (block = 2 * rows *
-    BQ threads), the R and BQ whose tiles copy
-    the fewest bytes into the busiest SM (``concat_busiest_sm_bytes``),
-    the grid every tile once; ``kchunk`` = C where one stage fits
+    BQ threads), the R and BQ whose tiles copy the fewest bytes into the
+    busiest SM (``concat_busiest_sm_bytes``), the grid every tile once;
+    ``kchunk`` = C where one stage fits
     CONCAT_SMEM_BUDGET, else the most columns of a (a multiple of 4) whose
     two stages fit. Raises above the kernels' 32-bit indices.
     """
