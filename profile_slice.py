@@ -684,7 +684,7 @@ def k1_rates(dev, parent_root):
 def parent_probes(root: Path):
     """The probes a parent checkout at ``root`` (build_parent) had in
     another form than this one: P5, bound with its C signature (a, out,
-    rows, row elements, stream); P1-P4 are the parent's since PR 9."""
+    rows, row elements, stream); P1-P4 have the parent's form."""
     lib = build_parent(root, "probes")
     row_build = lib.tg_probe_row_build
     row_build.restype = ctypes.c_int
