@@ -562,10 +562,15 @@ def phase_k2(model, dev):
              bound_ms=f"{r['bound_ms']:.5f}", bound_by=r["bound_by"],
              vs_bound=f"{r['ms'] / r['bound_ms']:.3f}", tflops=f"{r['tflops']:.2f}",
              host_ms=f"{r['host_ms']:.4f}", calls=r["calls"], copies=r["copies"],
-             max_abs_err=f"{r['max_abs_err']:.3e}")
+             max_abs_err=f"{r['max_abs_err']:.3e}", simt_max_abs_err=f"{r['simt_max_abs_err']:.3e}",
+             simt_masks_equal=r["simt_masks_equal"])
         require(r["max_abs_err"] <= K2_REL_TOL * r["scale"] and r["masks_equal"],
                 f"K2 enc1 at batch {batch}: err {r['max_abs_err']} of {r['scale']}, "
                 f"masks equal {r['masks_equal']}")
+        # the SIMT kernel, which the plan still gives the other ragged channel counts
+        require(r["simt_max_abs_err"] <= K2_REL_TOL * r["scale"] and r["simt_masks_equal"],
+                f"K2 SIMT on enc1 at batch {batch}: err {r['simt_max_abs_err']} of {r['scale']}, "
+                f"masks equal {r['simt_masks_equal']}")
     return fig
 
 
@@ -605,7 +610,7 @@ def enc1_times(args, packed, versions=None) -> dict:
     got, got_m = fused_pconv_eval(*args, packed=packed)
     want, want_m = fused_pconv_eval_plain(*args)
     simt = simt_enc1(args, tuple(got.shape))
-    simt_out = simt((x, m))[0]
+    simt_out, simt_m = simt((x, m))
     torch.cuda.synchronize()
     flop = 2.0 * got.numel() * weight[0].numel()
     fig = bound(flop, nbytes(x, m, *packed, bias, a, bb, got, got_m), TF32X3_FLOPS)
@@ -626,6 +631,7 @@ def enc1_times(args, packed, versions=None) -> dict:
     return dict(**times, host_ms=host_ms(lambda: kernel((x, m))), calls=calls, copies=len(srcs),
                 max_abs_err=(got - want).abs().max().item(), scale=want.abs().max().item(),
                 simt_max_abs_err=(simt_out - want).abs().max().item(),
+                simt_masks_equal=torch.equal(simt_m, want_m),
                 masks_equal=torch.equal(got_m, want_m), flop=flop, tflops=flop / times["ms"] / 1e9,
                 **fig)
 

@@ -101,10 +101,10 @@
 //   partial sum is an exact integer, so new_mask and the ratio equal the
 //   direct k*k-tap sum's.
 // - The product on the tensor cores in 3xTF32 (mma.sync): M = a warp's 32
-//   pixels, N = Cout; k-steps of 8 taps (m16n8k8), then one of 4 (m16n8k4)
-//   where 1-4 taps remain: K = 49 runs as 52. A fragments are gathered
-//   from the split planes through a table of tap offsets (a padded tap
-//   reads tap 0, whose weight is 0 there), B from the weight planes; per
+//   pixels, N = Cout; K = k*k padded with zeros to a multiple of 8, in
+//   k-steps of 8 taps (m16n8k8): K = 49 runs as 56. A fragments are
+//   gathered from the split planes through a table of tap offsets (a padded
+//   tap reads tap 0, whose weight is 0 there), B from the weight planes; per
 //   k-step lo*hi, hi*lo, then hi*hi into one sum from zero, the three
 //   products into one sum 8 MMAs apart.
 // - The epilogue in registers (bias, ratio, the folded BatchNorm, a ReLU
@@ -112,17 +112,19 @@
 //   each thread streams one float4 (__stcs) and a quad fills 64 bytes of a
 //   pixel's channel row.
 // Measured on an H100 80GB HBM3 at 700 W (profile_slice.py --legs stage,
-// device ms by graph replay, batch 8): 0.086 ms against the SIMT kernel's
-// 0.383 and cuDNN's conv alone 0.310. An fp32-FMA inner product over the
-// same blocks (4 pixels x 16 channels a thread) took 0.143-0.149 against
-// the MMA's 0.086-0.110 in the same calls. With the stores left out the
+// device ms by graph replay, batch 8): 0.086-0.087 ms against the SIMT
+// kernel's 0.383-0.385 and cuDNN's conv alone 0.310. An fp32-FMA inner
+// product over the same blocks (4 pixels x 16 channels a thread) took
+// 0.143-0.149 against the MMA's 0.086-0.110 in the same calls. With the stores left out the
 // kernel took 0.079-0.090, with the MMAs left out 0.064-0.077, with both
 // left out 0.041-0.050: what holds it is the latency of the per-tile
 // phases at 16 warps an SM, not the tensor cores. Issuing the three
 // products into one sum 2 MMAs apart cost 9 %; runtime divisions and
 // k-loops that were not unrolled in the staging, split and box-sum 12 %;
-// float2 stores 2 % over the float4s; K padded to 56 (7 k-steps of 8) 1-2
-// %; plain stores against __stcs nothing.
+// float2 stores 2 % over the float4s; plain stores against __stcs nothing.
+// A last k-step of 4 taps (m16n8k4, K = 49 as 52) took 0.0853 and 0.0856
+// against K = 56's 0.0868 twice, in turns in one call: 1.5-1.8 %, 0.0015
+// ms of a 19 ms forward, for a second copy of the k-step; not kept.
 //
 // The SIMT variant (pconv_simt_kernel): the other channel counts that are
 // not multiples of 4 (only narrow test models have them). One block per
@@ -671,15 +673,6 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src, bool pre
                : "memory");
 }
 
-// d += a * b on the tensor cores: A 16x4 (row), B 4x8 (col), TF32 in, fp32 sum
-__device__ __forceinline__ void mma_tf32_k4(float* d, uint32_t a0, uint32_t a1, uint32_t b0) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k4.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5}, {%6}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a0), "r"(a1), "r"(b0));
-}
-
 // tile t of the walk: its batch element and first output row and column
 __device__ __forceinline__ void c1_tile(const C1Args& p, int t, int& b, int& oy0, int& ox0) {
   const int tx = t % p.tiles_x;
@@ -771,10 +764,8 @@ __global__ void __launch_bounds__(kC1Threads, kC1BlocksPerSm) pconv_c1_kernel(co
   const int g = lane >> 2;  // the fragment's row (A, C) or column (B)
   const int tq = lane & 3;  // the fragment's K index (A, B) or column pair (C)
   const int py = tid >> 5;  // the warp's output row of the tile
-  // k-steps of 8 taps, then one of 4 where 1-4 taps remain (K = 49: 6 of 8
-  // and one of 4, 52 taps on the tensor cores)
-  const bool k4 = (kk & 7) != 0 && (kk & 7) <= 4;
-  const int ksteps = k4 ? kk >> 3 : (kk + 7) >> 3;
+  // k-steps of 8 taps over K padded to a multiple of 8 (K = 49: 7 k-steps)
+  const int ksteps = (kk + 7) >> 3;
   const int ntiles = p.Cout >> 3;
   const float* pHi = sPl;
   const float* pLo = sPl + kC1SmemPlane;
@@ -898,47 +889,6 @@ __global__ void __launch_bounds__(kC1Threads, kC1BlocksPerSm) pconv_c1_kernel(co
               for (int i = 0; i < 2; ++i)
                 if (jg + jj < ntiles) mma_tf32(acc[i][jg + jj], ahi[i], bh[jj][0], bh[jj][1]);
           }
-        }
-      }
-    }
-    if (k4) {
-      // the last taps as m16n8k4: the quad's index t is tap 8 ksteps + t
-      const int o = sTab[8 * ksteps + tq];
-      uint32_t ahi[2][2], alo[2][2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {  // (g, t), (g+8, t)
-          const int at = base + (16 * i + 8 * h) * s + o;
-          ahi[i][h] = __float_as_uint(pHi[at]);
-          alo[i][h] = __float_as_uint(pLo[at]);
-        }
-      }
-#pragma unroll
-      for (int jg = 0; jg < 8; jg += 4) {
-        if (jg < ntiles) {
-          uint32_t bh[4], bl[4];
-#pragma unroll
-          for (int jj = 0; jj < 4; ++jj) {
-            const float* wr = sW + (8 * (jg + jj) + g) * kC1KP + 8 * ksteps + tq;
-            bh[jj] = __float_as_uint(wr[0]);
-            bl[jj] = __float_as_uint(wr[kC1MaxN * kC1KP]);
-          }
-#pragma unroll
-          for (int jj = 0; jj < 4; ++jj)
-#pragma unroll
-            for (int i = 0; i < 2; ++i)
-              if (jg + jj < ntiles) mma_tf32_k4(acc[i][jg + jj], alo[i][0], alo[i][1], bh[jj]);
-#pragma unroll
-          for (int jj = 0; jj < 4; ++jj)
-#pragma unroll
-            for (int i = 0; i < 2; ++i)
-              if (jg + jj < ntiles) mma_tf32_k4(acc[i][jg + jj], ahi[i][0], ahi[i][1], bl[jj]);
-#pragma unroll
-          for (int jj = 0; jj < 4; ++jj)
-#pragma unroll
-            for (int i = 0; i < 2; ++i)
-              if (jg + jj < ntiles) mma_tf32_k4(acc[i][jg + jj], ahi[i][0], ahi[i][1], bh[jj]);
         }
       }
     }

@@ -26,7 +26,7 @@ note there gives the design. It has three variants, picked by shape in
   8 up to 64): persistent blocks over tiles of 8 x 32 outputs
   (``plan_c1``), the patch staged once a tile and split into TF32 planes,
   a separable box-sum, 3xTF32 on the tensor cores in k-steps of 8 taps
-  and a last of 4 (K = 49 as 52). It reads the pack's planes
+  (K = 49 padded to 56). It reads the pack's planes
   (``[Cout][k][k][1]``) and copies nothing of the weight.
 - ``simt``: fp32 FMA, for the rest (channel counts that are not
   multiples of 4, beside enc1's).

@@ -108,15 +108,24 @@ def stage_args(seed, hw, ca, cb, cout, k, s, dev, b=2):
      (5, 2, 64, 0, 128, 33),    # odd size
      (3, 1, 64, 32, 64, 17),    # decoder form: (up, skip) read in place
      (3, 2, 16, 0, 36, 2),      # 1x1 output, Cout not a multiple of 64
-     (3, 1, 32, 32, 32, 1)],
+     (3, 1, 32, 32, 32, 1),
+     (7, 2, 3, 0, 16, 64),      # SIMT: ragged channel counts
+     (3, 1, 6, 2, 40, 17),      # SIMT in the decoder form
+     (5, 2, 1, 0, 12, 13)],     # SIMT: one channel, Cout not a multiple of 8
 )
 def test_pconv_kernel_matches_plain(card, k, s, ca, cb, cout, hw):
     args, skip = stage_args(k + ca + hw, hw, ca, cb, cout, k, s, card)
-    before = fused_pconv_eval.launches
+    plan = plan_of(args, skip)
+    variant = "mma_split" if plan.splits > 1 else plan.variant
+    # the ragged cases (not enc1's one channel at Cout % 8 == 0) reach SIMT
+    ragged = bool(ca % 4 or cb % 4) and not (ca == 1 and cb == 0 and cout % 8 == 0)
+    assert (variant == "simt") == ragged
+    before, variants = fused_pconv_eval.launches, dict(fused_pconv_eval.variants)
     got, got_m = fused_pconv_eval(*args, x_skip=skip)
     want, want_m = fused_pconv_eval_plain(*args, x_skip=skip)
     torch.cuda.synchronize()
     assert fused_pconv_eval.launches == before + 1
+    assert k2_used(variants)[variant] == 1
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=RTOL, atol=ATOL)
     assert torch.equal(got_m, want_m)
 

@@ -7,9 +7,9 @@ without a card: ``plan_stage`` picks it for enc1 and for no other stage;
 one block; the separable box-sum (row sums of k, then column sums of k)
 equals the direct k*k-tap sum bit for bit on 0/1 masks; and a plain-torch
 emulation of the kernel's 3xTF32 arithmetic (x*m split into TF32 hi and
-lo, the pack's planes, K = k*k padded with zeros to 56 and multiplied in
-k-steps of 8, then one of 4 where 1-4 taps remain, per k-step lo*hi,
-hi*lo, then hi*hi, summed from zero) is held to the JAX package's enc1
+lo, the pack's planes, K = k*k padded with zeros to a multiple of 8 and
+multiplied in k-steps of 8, per k-step lo*hi, hi*lo, then hi*hi, summed
+from zero) is held to the JAX package's enc1
 path: ``partial_conv2d`` at HIGHEST precision, its eval BatchNorm
 (``TorchBatchNorm``) and ReLU, as ``models/generator.py`` runs enc1.
 """
@@ -155,13 +155,9 @@ def test_separable_box_sum_equals_the_direct_sum_bitwise(k, s):
 
 
 def k_steps(kk: int):
-    """The kernel's k-steps over K = kk taps: slices of 8 (m16n8k8), then
-    one of 4 (m16n8k4) where 1-4 taps remain."""
-    full, rem = divmod(kk, 8)
-    steps = [slice(8 * st, 8 * st + 8) for st in range(full)]
-    if rem:
-        steps.append(slice(8 * full, 8 * full + (4 if rem <= 4 else 8)))
-    return steps
+    """The kernel's k-steps over K = kk taps padded with zeros to a
+    multiple of 8: slices of 8 (m16n8k8)."""
+    return [slice(8 * st, 8 * st + 8) for st in range(-(-kk // 8))]
 
 
 def test_k_steps_cover_every_tap_and_pad_at_most_3_or_7():
@@ -170,8 +166,8 @@ def test_k_steps_cover_every_tap_and_pad_at_most_3_or_7():
         steps = k_steps(kk)
         covered = [i for st in steps for i in range(st.start, st.stop)]
         assert covered == list(range(len(covered))) and kk <= len(covered) <= KP
-        assert len(covered) - kk <= (3 if 0 < kk % 8 <= 4 else 7)
-    assert [(st.start, st.stop) for st in k_steps(49)][-1] == (48, 52)  # enc1: 52 taps
+        assert len(covered) - kk == -kk % 8 <= 7
+    assert [(st.start, st.stop) for st in k_steps(49)][-1] == (48, 56)  # enc1: 56 taps
     assert len(k_steps(49)) == 7 and len(k_steps(9)) == 2 and len(k_steps(16)) == 2
 
 
@@ -179,10 +175,10 @@ def emulated_c1(x, mask, weight, bias, stride, padding, bn_a, bn_b, terms=3):
     """The one-channel kernel's arithmetic in plain torch: x*m split into
     TF32 hi and lo; the pack's planes as [Cout][k*k] rows padded with
     zeros to KP; each window's taps gathered, a padded tap reading tap 0;
-    per k-step (of 8 taps, then one of 4 where 1-4 remain: k_steps) lo*hi,
-    hi*lo, then hi*hi added to a sum from zero (terms=1: hi*hi alone,
-    plain TF32); the separable box-sum; then the epilogue ((acc + bias) *
-    ratio) * a + bb and a ReLU that keeps NaN."""
+    per k-step of 8 taps (k_steps) lo*hi, hi*lo, then hi*hi added to a sum
+    from zero (terms=1: hi*hi alone, plain TF32); the separable box-sum;
+    then the epilogue ((acc + bias) * ratio) * a + bb and a ReLU that keeps
+    NaN."""
     b, h, w, _ = x.shape
     cout, _, k, _ = weight.shape
     kk = k * k
