@@ -99,8 +99,37 @@ Phases, one line of figures each (any failure raises and exits nonzero):
      of the seeded full-width model): exit 0, every inpainted PNG within
      1 grey level of inpaint_directory with the unfused tail, every
      colored PNG the LUT of its inpainted one, 13 K2 (1 one-channel, 0
-     SIMT), 6 K1, 1 K3 and 1 pack launches a forward; ``--mode train``
-     exits 2.
+     SIMT), 6 K1, 1 K3 and 1 pack launches a forward; ``--mode
+     human_guided_train`` exits 2;
+ 15. train_mode: the CLI's ``--mode train`` in-process on a synthetic
+     Digimap parent zip (scripts/bench_ingest.py's tiles, seed 7: 4x4
+     children, DSM 500^2 .asc, RGB 2000^2 JPEG with green patches,
+     diagonal and near-axis roads, furrowed fields and texture), from a
+     seeded full-width master given as --input_model, batch 8, one
+     epoch, fp32, the full loss with the port's seeded VGG: exit 0, 16
+     raw PNGs and masks, the checkerboard's split metadata, the master
+     checkpoint (reloaded strictly, at step 1), its timestamped copy and
+     the metrics JSON with finite losses; 7 K1 fwd and bwd a train step,
+     13 K2 (1 one-channel, 0 SIMT), 6 K1, 1 K3 and 1 pack a validation
+     forward; each detector's call on every tile of that run's ingest
+     (every road, vegetation and field mask non-empty); no error logged
+     by the port. Then, at every batch size that run and the drill give
+     the kernels (5, and the drill's 3 and 2), the validation forward
+     with the master's weights on ingested tiles against the plain path
+     (NRMSE 1e-5 on the composite, 1e-6 on dec2's features), K2 at the
+     14 stages (1e-4 of the max) and K1 fwd (equal) and bwd (1e-6 of the
+     max) at the 7 upsample shapes. The drill: the same command at batch
+     3 (two train batches) with TERRA_GAN_TPU_FAULT=preempt@0:1 exits 75
+     leaving preempted.pth with a trained state at step 1, and run again
+     resumes from it (its master's step counts the preempted state's
+     step) and removes it. Figures: the ingest's tiles/s (from the CLI
+     run's log, min(8, cores) threads), each detector's ms a tile in that
+     ingest, the detectors on one tile on the card against the same
+     detectors on the CPU (equal masks, or a combined-mask IoU of 0.999,
+     differing pixels counted), one 4000^2 tile (Digimap's native size)
+     by detector, and the train step at batch 8 on ingested tiles (ms,
+     samples/s, peak memory), each beside the card's name and power
+     limit.
 Then a JSON line of per-kernel figures (each with its bound: the larger
 of its bytes over 3.35 TB/s and its operations over the peak of the
 unit it runs on, from this run's shapes: the 67 TFLOP/s of fp32 outside
@@ -124,6 +153,7 @@ import itertools
 import json
 import logging
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -163,7 +193,18 @@ from terra_gan_tpu_torch.ops.cuda.pconv_kernel import (
     plan_stage,
     sm_count,
 )
-from terra_gan_tpu_torch.config import LoopConfig
+from terra_gan_tpu_torch.config import Config, LoopConfig
+from terra_gan_tpu_torch.data.asc import write_asc
+from terra_gan_tpu_torch.data.dataset import InpaintingDataset
+from terra_gan_tpu_torch.data.mask_processing import MaskPipeline, MaskType
+from terra_gan_tpu_torch.data.mask_processing.detectors import (
+    BuildingDetector,
+    FieldDetector,
+    RoadDetector,
+    VegetationDetector,
+)
+from terra_gan_tpu_torch.data.mask_processing.pipeline import read_bgr
+from terra_gan_tpu_torch.data.splitting import checkerboard_split
 from terra_gan_tpu_torch.ops.cuda.upsample_kernel import (
     upsample2x_bwd,
     upsample2x_bwd_plain,
@@ -175,8 +216,8 @@ from terra_gan_tpu_torch.ops.resize import upsample2x_bilinear
 from terra_gan_tpu_torch.parallel.infer import BatchedInpainter
 from terra_gan_tpu_torch.portal import jwt_auth
 from terra_gan_tpu_torch.serving import InpaintClient, InpaintService, make_server
-from terra_gan_tpu_torch.training.checkpoint import import_pth
-from terra_gan_tpu_torch.training.loop import train
+from terra_gan_tpu_torch.training.checkpoint import export_pth, import_pth
+from terra_gan_tpu_torch.training.loop import FAULT_ENV, train
 from terra_gan_tpu_torch.training.state import GANTrainState
 from terra_gan_tpu_torch.training.step import generator_objective, make_train_step
 from terra_gan_tpu_torch.utils import yaml_lite
@@ -1643,7 +1684,8 @@ def phase_cli(dev, counters):
             code = main_pipeline.main(["--mode", "evaluate", "--config", "config.yaml"])
             seconds = time.perf_counter() - t0
             launches = read_counts(counters)
-            train_code = main_pipeline.main(["--mode", "train", "--config", "config.yaml"])
+            hg_code = main_pipeline.main(["--mode", "human_guided_train", "--config",
+                                          "config.yaml"])
         finally:
             for h in logging.root.handlers[:]:  # the CLI's log file lives in tmp
                 logging.root.removeHandler(h)
@@ -1662,13 +1704,13 @@ def phase_cli(dev, counters):
                 lut_ok &= np.array_equal(np.asarray(Image.open(colored)), lut[got])
                 n_png += 1
     forwards = len(CLI_GRIDS) * math.ceil(CLI_TILES / CHUNK)
-    line("cli", exit=code, train_exit=train_code, grids=len(CLI_GRIDS), tiles=n_png,
+    line("cli", exit=code, human_guided_train_exit=hg_code, grids=len(CLI_GRIDS), tiles=n_png,
          u8_max_diff_vs_unfused=diff, colored_is_lut=lut_ok, forwards=forwards,
          seconds=f"{seconds:.2f}", k2_launches=launches["fused_pconv_eval"],
          k1_launches=launches["upsample2x_fwd"], k3_launches=launches["fused_decoder_tail"],
          k2_variants={v: launches[f"fused_pconv_eval.{v}"] for v in fused_pconv_eval.variants})
     require(code == 0, f"cli: evaluate exited {code}")
-    require(train_code == 2, f"cli: --mode train exited {train_code}, not 2")
+    require(hg_code == 2, f"cli: --mode human_guided_train exited {hg_code}, not 2")
     require(n_png == len(CLI_GRIDS) * CLI_TILES, f"cli: {n_png} tiles written")
     require(diff <= SLICE_U8_TOL, f"cli: {diff} grey levels from the unfused path")
     require(lut_ok, "cli: a colored PNG is not the LUT of its inpainted PNG")
@@ -1680,8 +1722,431 @@ def phase_cli(dev, counters):
     return launches
 
 
+# the train_mode phase: one synthetic Digimap parent zip, as
+# scripts/bench_ingest.py builds it (seed 7, DSM 500^2 .asc, RGB JPEG at
+# quality 95), of 4x4 child tiles at 2000^2, whose split gives 5 train, 5
+# val and 6 test tiles: one train step of 5 and one validation forward of 5
+TRAIN_MODE_GRID, TRAIN_MODE_SIDE, TRAIN_MODE_RGB, TRAIN_MODE_DSM = "NS00", 4, 2000, 500
+NATIVE_RGB = 4000  # Digimap's 25 cm RGB tile
+TRAIN_MODE_BATCH = 8
+# card against CPU detectors on one tile: equal masks, or this combined-mask IoU
+DETECTOR_IOU_TOL = 0.999
+# the drill runs the same command at batch 3, so that the epoch's 5 train
+# tiles make two batches (3 and 2): it preempts before the second, after one
+# step, and preempted.pth holds a trained state
+TRAIN_MODE_FAULT, TRAIN_MODE_DRILL_BATCH = "preempt@0:1", 3
+TRAIN_MODE_CONFIG = """\
+# the train_mode phase's config: one epoch, full-width 512^2
+training:
+  modes:
+    initial:
+      epochs: 1
+      batch_size: {batch}
+evaluation:
+  checkpoint_dir: ckpts
+mask_processing:
+  visualization:
+    enabled: false
+experiment_tracking:
+  enabled: false
+data:
+  raw_dir: data/raw
+  processed_dir: data/processed
+  output_dir: data/output
+  input_zip_folder: data/zips
+  models_dir: data/models
+  image_size: 512
+"""
+DETECTED = (MaskType.ROADS, MaskType.VEGETATION, MaskType.FIELDS)
+
+
+def aerial_tile(rng, px: int) -> np.ndarray:
+    """scripts/bench_ingest.py's BGR tile (textured ground, green patches,
+    diagonal roads) with a block of dark furrows (a ploughed field) and
+    near-axis roads, so that every detector finds something."""
+    yy, xx = np.mgrid[0:px, 0:px]
+    img = rng.integers(60, 120, (px, px, 3), dtype=np.uint8)
+    fy, fx = (int(v) for v in rng.integers(0, px // 2, 2))
+    field = (yy >= fy) & (yy < fy + px // 3) & (xx >= fx) & (xx < fx + px // 3)
+    img[field & (yy % 10 < 6)] = (35, 45, 50)
+    img[(yy // 97 + xx // 83) % 5 == 0] = (40, 140, 50)  # green
+    img[np.abs(yy - xx) % 211 < 3] = (180, 180, 178)  # road-ish, diagonal
+    for _ in range(2):  # near-axis roads, about 8 and 84 degrees
+        c = int(rng.integers(px // 8, px - px // 8))
+        img[np.abs(yy - c - (xx * 0.14).astype(int)) < 5] = (185, 185, 182)
+        img[np.abs(xx - c - (yy * 0.1).astype(int)) < 5] = (185, 185, 182)
+    return img
+
+
+def jpeg(bgr: np.ndarray) -> bytes:
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.fromarray(np.ascontiguousarray(bgr[..., ::-1])).save(buf, format="JPEG", quality=95)
+    return buf.getvalue()
+
+
+def digimap_zip(root: Path, side: int, rgb_px: int, seed: int = 7) -> Path:
+    """A synthetic Digimap parent zip of side^2 DSM (.asc) + RGB (JPEG) tiles."""
+    import zipfile
+
+    rng = np.random.default_rng(seed)
+    root.mkdir(parents=True)
+    path = root / f"{TRAIN_MODE_GRID}.zip"
+    with tempfile.TemporaryDirectory() as tmp, zipfile.ZipFile(path, "w", zipfile.ZIP_STORED) as zf:
+        for x in range(side):
+            for y in range(side):
+                name = f"{TRAIN_MODE_GRID[:2].lower()}{x:02d}{y:02d}"
+                asc = Path(tmp) / f"{name}_DSM.asc"
+                write_asc(asc, rng.uniform(0, 120, (TRAIN_MODE_DSM, TRAIN_MODE_DSM)))
+                zf.write(asc, f"getmapping-dsm-2000_1234/{asc.name}")
+                zf.writestr(f"getmapping_rgb_25cm_1234/{name}_rgb.jpg",
+                            jpeg(aerial_tile(rng, rgb_px)))
+    return path
+
+
+class LogRecords(logging.Handler):
+    """Keeps the records of the port's loggers (the CLI replaces the root's handlers)."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.records = []
+
+    def emit(self, record):
+        self.records.append(record)
+
+    def errors(self):
+        return [r.getMessage() for r in self.records if r.levelno >= logging.ERROR]
+
+
+def detector_ms(pipeline, bgr: np.ndarray):
+    """Each detector's masks and ms on one BGR tile on the pipeline's device."""
+    img = torch.from_numpy(np.ascontiguousarray(bgr)).to(pipeline.device)
+    masks, ms = {}, {}
+    for kind, det in pipeline.detectors.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        masks[kind] = det.detect(img)  # a host array: the detector has synced
+        ms[kind.value] = (time.perf_counter() - t0) * 1e3
+    return masks, ms
+
+
+@contextlib.contextmanager
+def watched_detectors():
+    """{kind: [(ms, detected pixels) a call]} of the four detectors while
+    open. The pipeline runs them one tile at a time, so a call's host clock
+    is its own, beside the ingest's other threads decoding and writing."""
+    classes = {MaskType.ROADS: RoadDetector, MaskType.BUILDINGS: BuildingDetector,
+               MaskType.VEGETATION: VegetationDetector, MaskType.FIELDS: FieldDetector}
+    calls = {kind: [] for kind in classes}
+    own = {cls: cls.__dict__.get("detect") for cls in classes.values()}
+    for kind, cls in classes.items():
+        def detect(self, image, _detect=cls.detect, _calls=calls[kind]):
+            t0 = time.perf_counter()
+            mask = _detect(self, image)  # a host array: the detector has synced
+            _calls.append(((time.perf_counter() - t0) * 1e3, int(np.count_nonzero(mask))))
+            return mask
+        cls.detect = detect
+    try:
+        yield calls
+    finally:
+        for cls, detect in own.items():
+            if detect is None:
+                del cls.detect
+            else:
+                cls.detect = detect
+
+
+def ingest_seconds(records) -> float:
+    """A CLI train run's ingest of its one grid, from its log: the grid's
+    first line to the count of tiles processed (extraction, DSM PNGs,
+    detectors, mask writes)."""
+    start = next(r.created for r in records if r.msg == "=== processing parent grid %s ===")
+    end = next(r.created for r in records if r.msg == "%s: %d tiles processed, %d failed")
+    return end - start
+
+
+def split_tiles(proc: Path, splits=("train", "val", "test")) -> dict:
+    """The ingested tiles of the splits, in order, as the loader reads them."""
+    items = []
+    for split in splits:
+        ds = InpaintingDataset(proc / split / "images", proc / split / "masks", size=SIZE)
+        items += [ds[i] for i in range(len(ds))]
+    return {k: np.stack([it[k] for it in items]) for k in items[0]}
+
+
+def batch_sizes(n: int, batch: int) -> set:
+    """The sizes of the batches a loader gives of n items (the last partial)."""
+    return {min(batch, n - i) for i in range(0, n, batch)}
+
+
+def hold_path_batches(model, tiles: dict, batches, dev) -> None:
+    """The kernels at each batch the train mode gave them, against their plain
+    versions: the validation forward (the master's weights on ingested
+    tiles) on the composite and dec2's features, K2 at the 14 stages and K1
+    fwd and bwd at the 7 upsample shapes, at the tolerances of their phases."""
+    gen = torch.Generator().manual_seed(SEED + 34)
+    model.eval()
+    n = len(tiles["image"])
+    for b in sorted(batches):
+        idx = [i % n for i in range(b)]
+        x = torch.from_numpy(tiles["image"][idx]).to(dev)
+        m = torch.from_numpy(tiles["mask"][idx]).to(dev)
+        with torch.inference_mode():
+            xm = x * m
+            with dec2_features(model) as got_feat:
+                got = model(xm, m)
+            with dec2_features(model) as want_feat:
+                want = model.forward_plain(xm, m)
+        err, feat_err = nrmse(got, want), nrmse(got_feat[0], want_feat[0])
+        k2_rel, k2_masks = 0.0, True
+        for name, h, ca, cb, st in stage_geometries(model, SIZE):
+            args, xs, packed = stage_inputs(st, h, ca, cb, b, gen, dev)
+            with torch.inference_mode():
+                got_s, got_m = fused_pconv_eval(*args, x_skip=xs, packed=packed)
+                want_s, want_m = fused_pconv_eval_plain(*args, x_skip=xs)
+            rel = (got_s - want_s).abs().max().item() / max(want_s.abs().max().item(), 1e-30)
+            require(rel <= K2_REL_TOL and torch.equal(got_m, want_m),
+                    f"train_mode: K2 {name} at batch {b}: rel err {rel}, "
+                    f"masks equal {torch.equal(got_m, want_m)}")
+            k2_rel = max(k2_rel, rel)
+        fwd_err = bwd_rel = 0.0
+        for h, c in upsample_shapes(model.base_width):
+            u = torch.rand((b, h, h, c), generator=gen).to(dev)
+            g = torch.randn((b, 2 * h, 2 * h, c), generator=gen).to(dev)
+            fwd_err = max(fwd_err, (upsample2x_fwd(u) - upsample2x_fwd_plain(u)).abs().max().item())
+            want_g = upsample2x_bwd_plain(g)
+            bwd_rel = max(bwd_rel, (upsample2x_bwd(g) - want_g).abs().max().item()
+                          / max(want_g.abs().max().item(), 1e-30))
+        line("train_mode_batch", batch=b, nrmse=f"{err:.3e}", dec2_nrmse=f"{feat_err:.3e}",
+             k2_rel_max=f"{k2_rel:.3e}", k1_fwd_max_abs_err=f"{fwd_err:.3e}",
+             k1_bwd_rel_max=f"{bwd_rel:.3e}")
+        require(got.shape == (b, SIZE, SIZE, 1) and torch.isfinite(got).all().item(),
+                f"train_mode: the forward at batch {b}: shape {tuple(got.shape)} or non-finite")
+        require(err <= SLICE_NRMSE_TOL, f"train_mode: forward at batch {b}: NRMSE {err}")
+        require(feat_err <= FEAT_NRMSE_TOL, f"train_mode: dec2 at batch {b}: NRMSE {feat_err}")
+        require(fwd_err <= K1_F32_ABS_TOL, f"train_mode: K1 fwd at batch {b}: err {fwd_err}")
+        require(bwd_rel <= K1_BWD_REL_TOL, f"train_mode: K1 bwd at batch {b}: rel err {bwd_rel}")
+
+
+def g_params(state) -> dict:
+    return {k: v.detach().cpu() for k, v in state.generator.named_parameters()}
+
+
+def phase_train_mode(dev, counters, card: str):
+    """The CLI's --mode train on the card: a Digimap zip through the ingest and
+    its detectors, the checkerboard split, one epoch from a seeded master, the
+    master checkpoint; the kernels at the run's batches against their plain
+    versions; the preemption drill; the detectors on the card against the
+    CPU; the ingest's, the detectors' and the train step's figures."""
+    import zipfile
+
+    pkg_log = logging.getLogger("terra_gan_tpu_torch")
+    log = LogRecords()
+    pkg_log.addHandler(log)
+    n_tiles = TRAIN_MODE_SIDE ** 2
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_train_mode_") as tmp, \
+                contextlib.chdir(tmp):
+            t0 = time.perf_counter()
+            zip_path = digimap_zip(Path("data/zips"), TRAIN_MODE_SIDE, TRAIN_MODE_RGB)
+            zip_s = time.perf_counter() - t0
+            Path("config.yaml").write_text(TRAIN_MODE_CONFIG.format(batch=TRAIN_MODE_BATCH))
+            Path("drill.yaml").write_text(TRAIN_MODE_CONFIG.format(batch=TRAIN_MODE_DRILL_BATCH))
+            cfg = Config.from_dict(yaml_lite.loads(Path("config.yaml").read_text()))
+            seed_state, _ = train_state(SEED + 30, dev)
+            export_pth("seed_master.pth", seed_state, 0, cfg.raw)
+            seed_g = g_params(seed_state)
+            del seed_state
+
+            # the main path: the CLI's train mode, its ingest's detectors watched
+            argv = ["--mode", "train", "--config", "config.yaml", "--input_model",
+                    "seed_master.pth"]
+            torch.cuda.synchronize()
+            reset_counts(counters)
+            t0 = time.perf_counter()
+            with watched_detectors() as calls:
+                code = main_pipeline.main(argv)
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+            launches = read_counts(counters)
+            ingest_s = ingest_seconds(log.records)
+
+            proc = Path("data/processed") / TRAIN_MODE_GRID
+            raw_png = sorted((proc / "raw").glob(f"{TRAIN_MODE_GRID[:2].lower()}????.png"))
+            raw_mask = sorted((proc / "raw").glob("*_mask_resized.png"))
+            mapping = json.loads((proc / "metadata" / "split_mapping.json").read_text())
+            want_split = {f"{x},{y}": checkerboard_split(x, y, 0, 0)
+                          for x in range(TRAIN_MODE_SIDE) for y in range(TRAIN_MODE_SIDE)}
+            counts = {s: sum(v == s for v in mapping.values()) for s in ("train", "val", "test")}
+            split_files = {s: len(list((proc / s / "images").iterdir())) for s in counts}
+            master = Path("ckpts/master_checkpoint.pth")
+            copies = sorted(Path("ckpts").glob("master_checkpoint_*.pth"))
+            reports = sorted(Path("ckpts").glob("training_metrics_*.json"))
+            copy_is_master = bool(copies) and copies[0].read_bytes() == master.read_bytes()
+            report = json.loads(reports[0].read_text()) if reports else {}
+            fresh, _ = train_state(SEED + 32, dev)
+            fresh, extra = import_pth(master, fresh)  # strict
+            master_step = fresh.step
+
+            # the kernels at every batch this run and the drill give them
+            batches = set().union(*(batch_sizes(counts[s], bs) for s in ("train", "val")
+                                    for bs in (TRAIN_MODE_BATCH, TRAIN_MODE_DRILL_BATCH)))
+            hold_path_batches(fresh.generator, split_tiles(proc, ("val", "train")), batches, dev)
+
+            # the train step alone on a batch of 8 ingested tiles on the card
+            step_fn = make_train_step(LoopConfig.from_training(cfg.training).loss_config())
+            vgg = init_vgg(torch.Generator().manual_seed(0), dev)
+            tiles = split_tiles(proc)
+            batch = {k: torch.from_numpy(v[:TRAIN_MODE_BATCH]).to(dev) for k, v in tiles.items()}
+            fresh.generator.train()
+            step_fn(fresh, batch, vgg)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t1 = time.perf_counter()
+            for _ in range(3):
+                step_fn(fresh, batch, vgg)
+            torch.cuda.synchronize()
+            ms_step = (time.perf_counter() - t1) / 3 * 1e3
+            peak = torch.cuda.max_memory_allocated()
+            del fresh, vgg, batch, tiles
+
+            # the detectors on the card against the same detectors on the CPU
+            pipeline = MaskPipeline(cfg.mask_processing, device=dev)
+            with zipfile.ZipFile(zip_path) as zf:
+                first = min(n for n in zf.namelist() if n.endswith(".jpg"))
+                tile = read_bgr(io.BytesIO(zf.read(first)))
+            on_card = pipeline.process_image(tile)
+            t0 = time.perf_counter()
+            on_cpu = MaskPipeline(cfg.mask_processing, device="cpu").process_image(tile)
+            cpu_s = time.perf_counter() - t0
+            differing = {k.value: int(np.count_nonzero(on_card[k] != on_cpu[k]))
+                         for k in on_card}
+            a, b = on_card[MaskType.COMBINED] == 0, on_cpu[MaskType.COMBINED] == 0
+            combined_iou = np.count_nonzero(a & b) / max(np.count_nonzero(a | b), 1)
+
+            # Digimap's native 25 cm tile through MaskPipeline
+            big = read_bgr(io.BytesIO(jpeg(aerial_tile(np.random.default_rng(SEED + 31),
+                                                       NATIVE_RGB))))
+            big_masks, big_ms = detector_ms(pipeline, big)
+
+            # the drill: the same command at batch 3, preempted after one
+            # step, then run again: it resumes from preempted.pth
+            drill = ["--mode", "train", "--config", "drill.yaml", "--input_model",
+                     "seed_master.pth"]
+            t0 = time.perf_counter()
+            os.environ[FAULT_ENV] = TRAIN_MODE_FAULT
+            try:
+                drill_code = main_pipeline.main(drill)
+            finally:
+                del os.environ[FAULT_ENV]
+            preempted = Path("ckpts/preempted.pth")
+            left = preempted.exists()
+            drill_step, drill_extra, trained = 0, {}, False
+            if left:
+                pre, drill_extra = import_pth(preempted, train_state(SEED + 33, dev)[0])
+                drill_step = pre.step
+                trained = any(not torch.equal(v, seed_g[k]) for k, v in g_params(pre).items())
+                del pre
+            n_log = len(log.records)
+            resume_code = main_pipeline.main(drill)
+            drill_s = time.perf_counter() - t0
+            resumed = any("resuming from preempted checkpoint" in r.getMessage()
+                          for r in log.records[n_log:])
+            gone = not preempted.exists()
+            last = json.loads(sorted(Path("ckpts").glob("training_metrics_*.json"))[-1].read_text())
+            resumed_hist = last["metrics"][TRAIN_MODE_GRID]["history"]
+            resumed_steps = sum(r["steps"] for r in resumed_hist)
+            resumed_master_step = import_pth(master, train_state(SEED + 35, dev)[0])[0].step
+    finally:
+        pkg_log.removeHandler(log)
+        for h in logging.root.handlers[:]:  # the CLI's log file lived in tmp
+            logging.root.removeHandler(h)
+            h.close()
+
+    errors = log.errors()
+    hist = report.get("metrics", {}).get(TRAIN_MODE_GRID, {}).get("history", [{}])
+    steps, val_fwd = hist[0].get("steps", 0), math.ceil(counts["val"] / TRAIN_MODE_BATCH)
+    losses = [hist[0].get(k, float("nan")) for k in ("g_loss", "d_loss", "val_g_loss",
+                                                     "val_d_loss")]
+    # the first tile's calls include the detectors' first use on the card
+    per_tile = {k.value: statistics.mean(ms for ms, _ in v[1:]) for k, v in calls.items()}
+    empty = {k.value: sum(px == 0 for _, px in calls[k]) for k in DETECTED}
+    line("train_mode_ingest", card=repr(card), tiles=n_tiles, rgb_px=TRAIN_MODE_RGB,
+         seconds=f"{ingest_s:.3f}", tiles_per_s=f"{n_tiles / ingest_s:.3f}",
+         detector_ms_per_tile={k: f"{v:.2f}" for k, v in per_tile.items()},
+         first_tile_ms={k.value: f"{v[0][0]:.2f}" for k, v in calls.items()},
+         detector_calls={k.value: len(v) for k, v in calls.items()}, empty_masks=empty,
+         card_vs_cpu_differing_pixels=differing,
+         card_vs_cpu_combined_iou=f"{combined_iou:.6f}", cpu_detectors_s=f"{cpu_s:.2f}",
+         zip_s=f"{zip_s:.2f}")
+    line("train_mode_native_tile", card=repr(card), rgb_px=NATIVE_RGB,
+         detector_ms={k: f"{v:.2f}" for k, v in big_ms.items()},
+         total_ms=f"{sum(big_ms.values()):.2f}",
+         detected_px={k.value: int(np.count_nonzero(big_masks[k])) for k in DETECTED})
+    line("train_mode", card=repr(card), exit=code, seconds=f"{run_s:.2f}",
+         raw_png=len(raw_png), masks=len(raw_mask), split=counts, split_files=split_files,
+         steps=steps, g_loss=f"{losses[0]:.5f}", d_loss=f"{losses[1]:.5f}",
+         val_g_loss=f"{losses[2]:.5f}", val_d_loss=f"{losses[3]:.5f}",
+         master_epoch=extra.get("epoch"), master_step=master_step,
+         vgg=extra.get("vgg_weights_provenance"), copies=len(copies), metrics_json=len(reports),
+         k1_fwd_launches=launches["upsample2x_fwd"], k1_bwd_launches=launches["upsample2x_bwd"],
+         k2_launches=launches["fused_pconv_eval"], k3_launches=launches["fused_decoder_tail"],
+         pack_launches=launches["pack_pconv_weights"],
+         k2_variants={v: launches[f"fused_pconv_eval.{v}"] for v in fused_pconv_eval.variants},
+         held_batches=sorted(batches), ms_per_step=f"{ms_step:.2f}", batch=TRAIN_MODE_BATCH,
+         samples_per_s=f"{1e3 * TRAIN_MODE_BATCH / ms_step:.2f}",
+         peak_mem_gib=f"{peak / 2**30:.2f}")
+    line("train_mode_drill", fault=TRAIN_MODE_FAULT, batch=TRAIN_MODE_DRILL_BATCH,
+         exit=drill_code, preempted_pth=left, preempted_epoch=drill_extra.get("epoch"),
+         preempted_parent=drill_extra.get("parent"), preempted_step=drill_step,
+         preempted_trained=trained, resume_exit=resume_code, resumed_from_preempted=resumed,
+         preempted_pth_removed=gone, resumed_epochs=[r["epoch"] for r in resumed_hist],
+         resumed_steps=resumed_steps, resumed_master_step=resumed_master_step,
+         errors_logged=len(errors), seconds=f"{drill_s:.2f}")
+    require(not errors, f"train_mode: errors logged: {errors[:5]}")
+    require(all(len(v) == n_tiles for v in calls.values()),
+            f"train_mode: detector calls {[len(v) for v in calls.values()]} for {n_tiles} tiles")
+    require(not any(empty.values()), f"train_mode: a detector found nothing on a tile: {empty}")
+    require(all(v == 0 for v in differing.values()) or combined_iou >= DETECTOR_IOU_TOL,
+            f"train_mode: card and CPU detectors differ {differing}, IoU {combined_iou}")
+    require(all(np.count_nonzero(big_masks[k]) for k in DETECTED),
+            "train_mode: a detector found nothing on the native-size tile")
+    require(code == 0, f"train_mode: the CLI exited {code}")
+    require(len(raw_png) == len(raw_mask) == n_tiles,
+            f"train_mode: {len(raw_png)} raw PNGs and {len(raw_mask)} masks")
+    require(mapping == want_split and split_files == counts,
+            f"train_mode: split {mapping} is not the checkerboard's, or its files {split_files}")
+    require(len(copies) == 1 and len(reports) == 1 and copy_is_master,
+            "train_mode: the master checkpoint, its timestamped copy or the metrics JSON")
+    require(report.get("successful") == [TRAIN_MODE_GRID] and extra.get("epoch") == 0,
+            f"train_mode: metrics {report.get('successful')}, master epoch {extra.get('epoch')}")
+    require(all(math.isfinite(v) for v in losses), f"train_mode: losses {losses}")
+    require(steps == 1 and val_fwd == 1 and master_step == steps,
+            f"train_mode: {steps} steps, {val_fwd} val forwards, master at step {master_step}")
+    want = {"upsample2x_fwd": 7 * steps + 6 * val_fwd, "upsample2x_bwd": 7 * steps,
+            "fused_pconv_eval": 13 * val_fwd, "fused_decoder_tail": val_fwd,
+            "pack_pconv_weights": val_fwd}
+    require(all(launches[k] == v for k, v in want.items()),
+            f"train_mode: launches {launches}, want {want}")
+    require_k2_variants("train_mode", launches, val_fwd)
+    require(drill_code == main_pipeline.PREEMPTED_EXIT and left
+            and drill_extra.get("preempted") and drill_extra.get("epoch") == 0
+            and drill_step == 1 and trained,
+            f"train_mode: the drill exited {drill_code}, preempted.pth {left} {drill_extra}, "
+            f"at step {drill_step}, trained {trained}")
+    # the resumed run starts from preempted.pth's state: its master's step
+    # counts that state's step (the seed master's is 0)
+    require(resume_code == 0 and resumed and gone
+            and [r["epoch"] for r in resumed_hist] == [0] and resumed_steps == 2
+            and resumed_master_step == drill_step + resumed_steps,
+            f"train_mode: the resume exited {resume_code}, resumed {resumed}, removed {gone}, "
+            f"history {resumed_hist}, master at step {resumed_master_step}")
+    return launches
+
+
 def main() -> None:
-    kind, _ = phase_env()
+    kind, card = phase_env()
     phase_build()
 
     dev = torch.device("cuda", 0)
@@ -1695,13 +2160,14 @@ def main() -> None:
     figures["fused_decoder_tail"] = phase_k3(model, dev)
     del model
     # launches: the main paths' runs, the inference slice, the train epoch,
-    # serving, the doctor and the CLI's evaluate
+    # serving, the doctor, the CLI's evaluate and its train mode
     runs.append(phase_train(dev, counters))
     phase_train_grad(dev, counters)
     runs.append(phase_serve(dev, counters))
     figures.update(phase_probes(dev))
     runs.append(phase_doctor(counters + PROBES))
     runs.append(phase_cli(dev, counters + PROBES))
+    runs.append(phase_train_mode(dev, counters + PROBES, card))
     launches = dict.fromkeys(read_counts(counters + PROBES), 0)
     for run in runs:
         for name, n in run.items():

@@ -98,9 +98,21 @@ full-width model with seeded weights, DSM-like tiles, tiles/s at batch
 1, 8 and 32 from the median of 10 calls by CUDA events after 3 warm-up
 calls).
 
+The epoch leg (with --parent DIR) times one train() run of the parent
+checkout and of this one in turns, parent, change (one loader thread),
+change with 4 (TERRA_GAN_TPU_FEED_WORKERS=4), the same again, change,
+parent, each turn a process of its own started in its checkout
+(EPOCH_TURN: the full-width models with seeded weights, 64 train and 8
+validation DSM-like tiles as PNGs at batch 8, their masks at 512^2 and
+again at 2000^2 as the ingest writes them, EPOCH_RUNS epochs with
+cuDNN's benchmark off so that every turn runs the same convolutions; the
+seconds of each epoch's train loop, loader included, from train()'s
+history, the first epoch a warm-up).
+
 It prints one line per figure and writes all of them as JSON to --out
 (and the traces beside it); --legs picks some of the legs (inference,
-stage, tail, serve, train, probes, k1, turns; all but turns by default).
+stage, tail, serve, train, probes, k1, turns, epoch; all but turns and
+epoch by default).
 Without CUDA it exits nonzero.
 """
 
@@ -108,6 +120,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import itertools
 import json
 import os
 import subprocess
@@ -169,11 +182,15 @@ STAGE_BATCHES = (1, 8)
 ENC1_BATCHES = (1, 2, 8, 32)
 K1_BATCHES = (1, 2, 8, 32)
 SWEEP_BATCHES = (8,)  # where the k1 leg times every plan the planner could take
-LEGS = ("inference", "stage", "tail", "serve", "train", "probes", "k1", "turns")
-DEFAULT_LEGS = LEGS[:-1]  # the turns leg needs --parent
+LEGS = ("inference", "stage", "tail", "serve", "train", "probes", "k1", "turns", "epoch")
+DEFAULT_LEGS = LEGS[:-2]  # the turns and epoch legs need --parent
 TURN_BATCHES = (1, 8, 32)
 TRAIN_BATCHES = (8, 16, 32)
 TRAIN_STEPS = 5
+EPOCH_TILES, EPOCH_VAL, EPOCH_BATCH, EPOCH_RUNS = 64, 8, 8, 4
+# the epoch leg's mask PNGs: at the tile's side, and at the RGB side the
+# ingest writes them (the loader resizes them at every read)
+EPOCH_MASK_PX = (SIZE, 2000)
 TRACE_STEPS = 3
 
 
@@ -861,20 +878,84 @@ def forward_turns(parent_root: Path):
     return rows
 
 
+# one turn of the epoch leg, run as a process of its own in a checkout:
+# train() over PNG tiles, the seconds of each epoch's train loop
+EPOCH_TURN = r"""
+import json, sys, tempfile
+from pathlib import Path
+import torch
+from chip_smoke import SEED, SIZE, dsm_tiles, phase_env, train_state, write_tiles
+from terra_gan_tpu_torch.config import LoopConfig
+from terra_gan_tpu_torch.training.loop import train
+
+n_train, n_val, batch, epochs, mask_px = json.loads(sys.argv[1])
+phase_env()
+torch.backends.cudnn.benchmark = False  # the same convolutions in every turn
+dev = torch.device("cuda", 0)
+imgs, masks = dsm_tiles(n_train + n_val, SIZE, SEED + 5)
+state, vgg = train_state(SEED + 6, dev)
+with tempfile.TemporaryDirectory() as tmp:
+    root = Path(tmp)
+    write_tiles(root / "train", imgs[:n_train], masks[:n_train])
+    write_tiles(root / "val", imgs[n_train:], masks[n_train:])
+    if mask_px != SIZE:
+        from PIL import Image
+        for f in sorted(root.glob("*/masks/*.png")):
+            Image.open(f).resize((mask_px, mask_px), Image.NEAREST).save(f)
+    result = train(root / "train" / "images", root / "train" / "masks", state,
+                   LoopConfig(epochs=epochs, batch_size=batch),
+                   val_img_dir=root / "val" / "images", val_mask_dir=root / "val" / "masks",
+                   vgg=vgg, image_size=SIZE, seed=SEED)
+print(json.dumps([{k: r[k] for k in ("epoch", "steps", "epoch_time")}
+                  for r in result["history"]]))
+"""
+
+
+def epoch_turns(parent_root: Path):
+    """One train() run of a parent checkout and of this one in turns (parent,
+    change, change with 4 loader threads twice, change, parent), each a
+    process started in its checkout (EPOCH_TURN): seconds an epoch and ms a
+    step, the first epoch left out as the warm-up."""
+    here = Path(__file__).resolve().parent
+    four = {"TERRA_GAN_TPU_FEED_WORKERS": "4"}
+    turns = (("parent", parent_root, {}), ("change", here, {}), ("change_4_workers", here, four),
+             ("change_4_workers", here, four), ("change", here, {}), ("parent", parent_root, {}))
+    rows = []
+    for mask_px, (turn_no, (turn, root, extra)) in itertools.product(EPOCH_MASK_PX,
+                                                                      enumerate(turns)):
+        spec = json.dumps([EPOCH_TILES, EPOCH_VAL, EPOCH_BATCH, EPOCH_RUNS, mask_px])
+        env = {k: v for k, v in os.environ.items() if k != "TERRA_GAN_TPU_FEED_WORKERS"}
+        env.update(PYTHONPATH=str(root.resolve()), **extra)
+        run = subprocess.run([sys.executable, "-c", EPOCH_TURN, spec], cwd=root, env=env,
+                             capture_output=True, text=True, timeout=900)
+        if run.returncode:
+            raise RuntimeError(f"the {turn} turn exited {run.returncode}: {run.stderr[-2000:]}")
+        hist = json.loads(run.stdout.strip().splitlines()[-1])[1:]
+        seconds = [r["epoch_time"] for r in hist]
+        row = dict(mask_px=mask_px, turn_no=turn_no, turn=turn, epochs=len(hist),
+                   steps=hist[0]["steps"], epoch_s=seconds,
+                   ms_per_step=[1e3 * t / r["steps"] for t, r in zip(seconds, hist)])
+        line("epoch", mask_px=mask_px, turn_no=turn_no, turn=turn, steps=row["steps"],
+             epoch_s=[f"{v:.4f}" for v in seconds],
+             ms_per_step=[f"{v:.2f}" for v in row["ms_per_step"]])
+        rows.append(row)
+    return rows
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", type=Path, default=Path("chiprun_out/profile_slice.json"))
     ap.add_argument("--legs", default=",".join(DEFAULT_LEGS),
                     help=f"comma-separated legs to run, of {','.join(LEGS)}")
     ap.add_argument("--parent", type=Path, default=None,
-                    help="stage, probes, k1 and turns legs: a parent checkout whose enc1, "
-                         "P5, K1 and eval forward run in turns")
+                    help="stage, probes, k1, turns and epoch legs: a parent checkout whose "
+                         "enc1, P5, K1, eval forward and train() run in turns")
     args = ap.parse_args()
     legs = set(args.legs.split(","))
     if not legs <= set(LEGS):
         ap.error(f"--legs: unknown {sorted(legs - set(LEGS))}")
-    if "turns" in legs and args.parent is None:
-        ap.error("--legs turns needs --parent")
+    if legs & {"turns", "epoch"} and args.parent is None:
+        ap.error("--legs turns and epoch need --parent")
     kind, smi = phase_env()
     phase_build()
     dev = torch.device("cuda", 0)
@@ -907,6 +988,8 @@ def main() -> None:
         result["probes"] = probe_rates(dev, args.parent)
     if "turns" in legs:
         result["turns"] = forward_turns(args.parent)
+    if "epoch" in legs:
+        result["epoch"] = epoch_turns(args.parent)
     args.out.write_text(json.dumps(result, indent=1))
     print(json.dumps({"written": str(args.out)}), flush=True)
 

@@ -1,11 +1,25 @@
 """The pipeline CLI (counterpart of terra_gan_tpu/cli/main_pipeline.py).
 
-    python -m terra_gan_tpu_torch.cli.main_pipeline --mode evaluate
+    python -m terra_gan_tpu_torch.cli.main_pipeline --mode {train,evaluate}
         [--input_model PATH] [--grid GRID] [--config PATH] [--debug]
         [--device cuda|cpu]
     python -m terra_gan_tpu_torch --mode evaluate ...
 
-The JAX CLI's flags and contracts for the mode the port runs:
+The JAX CLI's flags and contracts for the modes the port runs:
+  * train (main_pipeline.py:185-361): every zip in data.input_zip_folder
+    (sorted) is ingested (``ingest_zip``: DSM PNGs and detector masks),
+    its tiles split on the checkerboard, and ONE master
+    generator+discriminator trained across the parent grids in turn. The
+    state starts from the first of preempted.pth, ``--input_model``,
+    the master checkpoint, _BASELINE_MODEL/BASELINE_MODEL.pth
+    (``resolve_checkpoint``), else a fresh seeded init; a preempted.pth
+    fast-forwards its own parent's schedule. At the end the master
+    checkpoint (config = the YAML config), a timestamped copy and
+    training_metrics_<ts>.json; exit 0 if any grid trained, 1 if none,
+    75 when preempted (re-run the same command to resume). The
+    perceptual VGG runs on training.vgg_weights_path, else on the port's
+    seeded init, tagged ``random:torch-seed0`` (it is not the JAX
+    package's ``random:seed0``, which jax.random draws);
   * evaluate (main_pipeline.py:446-556): load the master generator
     (``--input_model`` or ``<evaluation.checkpoint_dir>/master_checkpoint.pth``),
     inpaint every test tile of ``--grid`` or of every valid parent grid
@@ -18,26 +32,33 @@ The JAX CLI's flags and contracts for the mode the port runs:
 
 It runs on the card unless ``--device cpu`` is given; without CUDA the
 default device raises. Not ported yet, and refused with exit code 2:
-``--mode train`` and ``--mode human_guided_train``, ``--mesh``, and a
-config that sets ``evaluation.quant`` or a bf16 ``training.compute_dtype``
-(``bf16`` or ``bfloat16``; ``float32`` or no key is the fp32 the port
-runs). Experiment tracking is not ported:
-with ``experiment_tracking.enabled`` the run logs a warning and goes on
-untracked.
+``--mode human_guided_train``, ``--mesh``, and a config that sets
+``evaluation.quant``, a QAT tail (``training.qat_tail.steps``) or a bf16
+``training.compute_dtype`` (``bf16`` or ``bfloat16``; ``float32`` or no
+key is the fp32 the port runs). Experiment tracking is not ported: with
+``experiment_tracking.enabled`` the run logs a warning and goes on
+untracked; ``training.async_checkpoint`` writes synchronously.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import logging
 import os
+import shutil
 import sys
+import time
 from pathlib import Path
-from typing import Optional
+from typing import Any, Dict, List, Optional
 
 logger = logging.getLogger("terra_gan_tpu_torch.pipeline")
 
 NOT_PORTED_EXIT = 2
+PREEMPTED_EXIT = 75  # EX_TEMPFAIL: re-run the same command to resume
+BASELINE_MODEL = "_BASELINE_MODEL/BASELINE_MODEL.pth"
+# the port's seeded VGG, not the JAX package's random_weights(0)
+VGG_RANDOM_TAG = "random:torch-seed0"
 
 
 def setup_logging(debug: bool = False) -> None:
@@ -88,6 +109,150 @@ def _bf16_requested(cfg) -> bool:
     reads it (main_pipeline.py:103-108); anything else is fp32."""
     name = (cfg.raw.get("training") or {}).get("compute_dtype")
     return str(name).lower() in ("bf16", "bfloat16")
+
+
+def _load_vgg(cfg, device):
+    """Perceptual-loss weights and their provenance: training.vgg_weights_path
+    ("pretrained:<path>"), else the port's seeded init (VGG_RANDOM_TAG)
+    where the perceptual weight is positive, else (None, "none")."""
+    import torch
+
+    from ..utils.weights import init_vgg, load_vgg
+
+    path = (cfg.raw.get("training") or {}).get("vgg_weights_path")
+    if path and Path(path).exists():
+        return load_vgg(path, device), f"pretrained:{path}"
+    if cfg.training.loss_weights.perceptual > 0:
+        logger.warning(
+            "no pretrained VGG weights configured (training.vgg_weights_path); "
+            "using the port's seeded random VGG features for the perceptual term"
+        )
+        return init_vgg(torch.Generator().manual_seed(0), device), VGG_RANDOM_TAG
+    return None, "none"
+
+
+def _init_master_state(cfg, input_model: Optional[str], device):
+    """The master state (full width) and, for a preempted.pth, its resume
+    record: the first checkpoint of the load chain, else a fresh init
+    (torch's default conv init from seed 0, fresh BatchNorm)."""
+    import torch
+
+    from ..training.checkpoint import import_pth, resolve_checkpoint
+    from ..training.state import GANTrainState
+    from ..utils.weights import init_discriminator, init_generator
+
+    gen = torch.Generator().manual_seed(0)
+    G = init_generator(64, gen, device)
+    for mod in G.modules():
+        if isinstance(mod, torch.nn.BatchNorm2d):
+            mod.reset_parameters()
+    state = GANTrainState.create(G, init_discriminator(64, gen, device),
+                                 lr=cfg.training.initial.learning_rate)
+    master = _master_checkpoint_path(cfg)
+    ckpt = resolve_checkpoint(input_model, master, BASELINE_MODEL,
+                              preempted=master.parent / "preempted.pth")
+    resume = None
+    if ckpt is not None:
+        try:
+            state, extra = import_pth(ckpt, state)
+            logger.info("loaded checkpoint %s (epoch %s)", ckpt, extra.get("epoch"))
+            if extra.get("preempted"):
+                # the interrupted epoch, the best losses and the parent grid:
+                # run_training_mode fast-forwards that parent's train()
+                resume = extra
+        except Exception as e:
+            logger.error("checkpoint load failed (%s); fresh init", e)
+    return state, resume
+
+
+def run_training_mode(cfg, input_model: Optional[str] = None, device="cuda") -> bool:
+    from ..config import LoopConfig
+    from ..data.ingest import ingest_zip
+    from ..data.paths import PathManager
+    from ..data.splitting import GeographicalSplitter
+    from ..data.visualization import create_split_visualization
+    from ..training.checkpoint import export_pth
+    from ..training.loop import TrainingPreempted, train
+
+    zip_folder = Path(cfg.data.input_zip_folder)
+    zips = sorted(zip_folder.glob("*.zip")) if zip_folder.exists() else []
+    if not zips:
+        logger.error("no input zips in %s", zip_folder)
+        return False
+
+    pm = PathManager(cfg)
+    state, resume = _init_master_state(cfg, input_model, device)
+    loop_cfg = LoopConfig.from_training(cfg.training)
+    vgg, vgg_provenance = _load_vgg(cfg, device)
+    successful: List[str] = []
+    failed: List[str] = []
+    metrics: Dict[str, Any] = {}
+
+    for zip_path in zips:
+        try:
+            parent = pm.parent_from_zip(zip_path)
+        except ValueError as e:
+            logger.error("%s", e)
+            failed.append(zip_path.name)
+            continue
+        logger.info("=== processing parent grid %s ===", parent)
+        try:
+            splitter = GeographicalSplitter(parent, Path(cfg.data.processed_dir))
+            if not ingest_zip(zip_path, parent, cfg, splitter=splitter, device=device):
+                failed.append(parent)
+                continue
+            splitter.generate_splits()
+            splitter.apply_splits()
+            splitter.save_metadata()
+            try:
+                create_split_visualization(
+                    Path(cfg.data.processed_dir) / parent / "metadata", parent_grid=parent
+                )
+            except Exception as e:
+                logger.warning("split visualization failed: %s", e)
+
+            proc = Path(cfg.data.processed_dir) / parent
+            resume_kwargs = {}
+            if resume is not None and resume.get("parent") in (None, parent):
+                # fast-forward only the parent grid whose schedule the
+                # preemption interrupted; the others run their full schedule
+                resume_kwargs = {"start_epoch": int(resume.get("epoch", 0)),
+                                 "resume_best": resume}
+                resume = None
+            result = train(
+                proc / "train" / "images", proc / "train" / "masks", state, loop_cfg,
+                checkpoint_path=_master_checkpoint_path(cfg),
+                val_img_dir=proc / "val" / "images", val_mask_dir=proc / "val" / "masks",
+                vgg=vgg, image_size=_image_size(cfg), preempt_extra={"parent": parent},
+                record_config=cfg.raw, **resume_kwargs,
+            )
+            state = result.pop("state")
+            metrics[parent] = result
+            successful.append(parent)
+        except TrainingPreempted:
+            # not a per-parent failure: the loop saved preempted.pth
+            raise
+        except Exception as e:
+            logger.exception("parent %s failed: %s", parent, e)
+            failed.append(parent)
+
+    # final master checkpoint + timestamped copy (main_pipeline.py:386-412)
+    ckpt_path = _master_checkpoint_path(cfg)
+    ckpt_path.parent.mkdir(parents=True, exist_ok=True)
+    export_pth(
+        ckpt_path, state,
+        epoch=max((m.get("final_epoch", 0) for m in metrics.values()), default=0),
+        config=cfg.raw,
+        extra={"processed_grids": successful, "metrics": metrics,
+               "vgg_weights_provenance": vgg_provenance},
+    )
+    stamp = time.strftime("%Y%m%d_%H%M%S")
+    shutil.copy2(ckpt_path, ckpt_path.parent / f"master_checkpoint_{stamp}.pth")
+    with open(ckpt_path.parent / f"training_metrics_{stamp}.json", "w") as f:
+        json.dump({"successful": successful, "failed": failed, "metrics": metrics},
+                  f, indent=2, default=str)
+    logger.info("training done: %d grids ok, %d failed", len(successful), len(failed))
+    return bool(successful)
 
 
 def run_evaluation_mode(
@@ -149,7 +314,7 @@ def main(argv=None) -> int:
     parser.add_argument(
         "--mode", required=True,
         choices=["train", "evaluate", "human_guided_train"],
-        help="evaluate; train and human_guided_train are not ported yet",
+        help="train or evaluate; human_guided_train is not ported yet",
     )
     parser.add_argument("--input_model", default=None)
     parser.add_argument("--grid", default=None)
@@ -166,9 +331,9 @@ def main(argv=None) -> int:
     args = parser.parse_args(argv)
 
     setup_logging(args.debug)
-    if args.mode != "evaluate":
-        logger.error("--mode %s is not ported yet: the PyTorch port runs --mode evaluate",
-                     args.mode)
+    if args.mode == "human_guided_train":
+        logger.error("--mode %s is not ported yet: the PyTorch port runs --mode train "
+                     "and --mode evaluate", args.mode)
         return NOT_PORTED_EXIT
     if args.mesh:
         logger.error("--mesh is not ported yet: the PyTorch port runs on one device")
@@ -180,15 +345,32 @@ def main(argv=None) -> int:
         return NOT_PORTED_EXIT
     if _bf16_requested(cfg):
         logger.error("training.compute_dtype (%s) is not ported yet: the PyTorch port "
-                     "evaluates in fp32", cfg.raw["training"]["compute_dtype"])
+                     "runs in fp32", cfg.raw["training"]["compute_dtype"])
+        return NOT_PORTED_EXIT
+    if args.mode == "train" and cfg.training.qat_tail.steps > 0:
+        logger.error("training.qat_tail is not ported yet: the PyTorch port trains "
+                     "without the QAT tail")
         return NOT_PORTED_EXIT
     if not args.no_tracking and cfg.experiment_tracking.enabled:
         logger.warning("experiment tracking is not ported yet: this run is not tracked")
+    if args.mode == "train" and cfg.training.async_checkpoint:
+        logger.warning("training.async_checkpoint is not ported yet: checkpoints are "
+                       "written synchronously")
 
+    from ..training.loop import TrainingPreempted
     from ..utils.device import resolve_device
 
     device = resolve_device(args.device)  # no CUDA for the default device raises here
-    ok = run_evaluation_mode(cfg, args.input_model, args.grid, device)
+    try:
+        if args.mode == "train":
+            ok = run_training_mode(cfg, args.input_model, device)
+        else:
+            ok = run_evaluation_mode(cfg, args.input_model, args.grid, device)
+    except TrainingPreempted as e:
+        logger.warning("run preempted at epoch %s; latest state saved to %s — re-run "
+                       "the same command to resume (exit %d)", e.epoch, e.checkpoint,
+                       PREEMPTED_EXIT)
+        return PREEMPTED_EXIT
     return 0 if ok else 1
 
 

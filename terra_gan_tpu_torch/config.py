@@ -215,6 +215,7 @@ class LoopConfig:
     perceptual: float = 0.1
     tv: float = 0.1
     boundary: float = 0.5  # TrainingConfig.effective_boundary_weight()
+    feed_workers: Optional[int] = None  # the loaders' producer threads (None: default_feed_workers)
 
     @classmethod
     def from_training(cls, t: TrainingConfig) -> "LoopConfig":
@@ -223,7 +224,7 @@ class LoopConfig:
             epochs=init.epochs, batch_size=init.batch_size, learning_rate=init.learning_rate,
             log_interval=init.log_interval, checkpoint_interval=init.checkpoint_interval,
             perceptual=t.loss_weights.perceptual, tv=t.loss_weights.tv,
-            boundary=t.effective_boundary_weight(),
+            boundary=t.effective_boundary_weight(), feed_workers=t.feed_workers,
         )
 
     def loss_config(self) -> InpaintingLossConfig:

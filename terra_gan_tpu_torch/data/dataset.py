@@ -4,23 +4,23 @@ Reference contract (mvp_gan/src/utils/dataset.py:14-43, train.py:67-81):
 paired image and mask directories, matched by sorted filename; both
 grayscale and resized to ``size`` with PIL's bilinear filter (the same
 transform for the mask); the mask binarised at > 0 after the resize;
-values scaled to [0, 1]. The loader shuffles with one permutation per
-epoch from ``np.random.default_rng(seed)`` and keeps the partial last
-batch, as the JAX package's ``BatchLoader`` does, so both give the same
-batch stream for the same seed. Batches are NHWC float32 numpy arrays.
+values scaled to [0, 1]. ``BatchLoader`` is the JAX package's loader,
+so both give the same batch stream for the same seed. Batches are NHWC
+float32 numpy arrays.
 
 Re-implemented here because the JAX package's data modules import its
-config, which needs ``yaml``, and its image helpers, ``cv2``. One
-prefetch thread decodes the next batches while the device computes.
+config, which needs ``yaml``, and its image helpers, ``cv2``. Producer
+threads decode the next batches while the device computes; the JAX
+loader's decoded-tile cache is not ported.
 """
 
 from __future__ import annotations
 
 import logging
-import queue
+import os
 import threading
 from pathlib import Path
-from typing import Dict, Iterator, List
+from typing import Dict, Iterator, List, Optional
 
 import numpy as np
 
@@ -61,7 +61,25 @@ class InpaintingDataset:
         }
 
 
-_DONE = object()
+def default_feed_workers() -> int:
+    """Producer threads for BatchLoader: TERRA_GAN_TPU_FEED_WORKERS where it
+    is set (as in the JAX package), else one.
+
+    The JAX package defaults to min(4, cores) to feed a mesh of chips. One
+    card's train step takes a batch of 8 512^2 tiles in 200-250 ms, and one
+    producer decodes the batch well within that (masks at 2000^2
+    included); more threads only take the interpreter lock from the step's
+    launches. On an NVIDIA H100 an epoch of 8 steps took 2-4 % longer with
+    4 producers than with 1 (``profile_slice.py --legs epoch``). The batch
+    stream is the same with any count.
+    """
+    env = os.environ.get("TERRA_GAN_TPU_FEED_WORKERS")
+    if env is not None:
+        try:
+            return max(1, int(env))
+        except ValueError:
+            logger.warning("bad TERRA_GAN_TPU_FEED_WORKERS=%r ignored", env)
+    return 1
 
 
 class _Failed:
@@ -69,74 +87,133 @@ class _Failed:
         self.error = error
 
 
-_PREFETCH = 2  # batches decoded ahead of the one the device is on
-
-
 class BatchLoader:
-    """Shuffling batcher with one prefetch thread; yields {key: [B, ...] float32}.
+    """Shuffling batcher with N producer threads; yields {key: [B, ...]} batches.
 
-    The partial last batch is kept, as torch's DataLoader keeps it in the
-    reference (train.py:75-81). A batch that fails to load is logged and
-    skipped, as the reference skips a failed batch; an epoch in which
+    The JAX package's loader (terra_gan_tpu/data/dataset.py:238-407):
+    NHWC float32 arrays stacked (other fields collected into lists);
+    the partial last batch kept unless ``drop_last``; one permutation per
+    epoch from ``np.random.default_rng(seed)``, and ``set_epoch`` to
+    fast-forward that stream after a resume. Workers claim batch indices
+    from a shared counter and publish into a reorder buffer that the
+    consumer empties strictly in sequence, so the same seed gives the
+    same batch stream with 1 or N workers. A batch that fails to load is
+    logged and skipped (``strict``: raises instead); an epoch in which
     every batch failed raises.
     """
 
-    def __init__(self, dataset, batch_size: int, shuffle: bool = True, seed: int = 0):
+    def __init__(
+        self,
+        dataset,
+        batch_size: int,
+        shuffle: bool = True,
+        seed: int = 0,
+        drop_last: bool = False,
+        prefetch: int = 2,
+        strict: bool = False,
+        num_workers: Optional[int] = None,
+    ):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
+        self.drop_last = drop_last
+        self.prefetch = prefetch
+        self.strict = strict
+        self.num_workers = (
+            default_feed_workers() if num_workers is None else max(1, num_workers)
+        )
         self._rng = np.random.default_rng(seed)
+        self._epoch = 0
 
-    def _batches(self) -> List[np.ndarray]:
-        order = np.arange(len(self.dataset))
+    def __len__(self) -> int:
+        n = len(self.dataset)
+        return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
+
+    def _order(self) -> np.ndarray:
+        idx = np.arange(len(self.dataset))
         if self.shuffle:
-            self._rng.shuffle(order)
+            self._rng.shuffle(idx)
+        return idx
+
+    def set_epoch(self, epoch: int) -> None:
+        """Fast-forward the shuffle stream to epoch ``epoch``: the next
+        ``__iter__`` gives the order that epoch has in an uninterrupted
+        run (one permutation drawn and discarded per skipped epoch)."""
+        while self._epoch < epoch:
+            self._order()
+            self._epoch += 1
+
+    @staticmethod
+    def _collate(items: List[Dict]) -> Dict:
+        out: Dict = {}
+        for key in items[0]:
+            vals = [it[key] for it in items]
+            out[key] = np.stack(vals, axis=0) if isinstance(vals[0], np.ndarray) else vals
+        return out
+
+    def __iter__(self) -> Iterator[Dict]:
+        order = self._order()
+        self._epoch += 1
+        n = len(order)
         bs = self.batch_size
-        return [order[s : s + bs] for s in range(0, len(order), bs)]
+        stops = range(0, n - bs + 1, bs) if self.drop_last else range(0, n, bs)
+        batches = [order[s : s + bs] for s in stops]
+        total = len(batches)
+        workers = max(1, min(self.num_workers, total)) if total else 0
 
-    def _load(self, idx: np.ndarray) -> Dict[str, np.ndarray]:
-        items = [self.dataset[int(i)] for i in idx]
-        return {k: np.stack([it[k] for it in items]) for k in items[0]}
+        # at most emit + prefetch + workers batches are claimed ahead of the
+        # consumer, so memory stays bounded however slow it is
+        results: Dict[int, object] = {}
+        cond = threading.Condition()
+        state = {"claim": 0, "emit": 0, "stop": False}
+        max_ahead = self.prefetch + workers
 
-    def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
-        batches = self._batches()
-        q: queue.Queue = queue.Queue(maxsize=_PREFETCH)
-        stop = threading.Event()
-
-        def put(item) -> bool:
-            while not stop.is_set():
-                try:
-                    q.put(item, timeout=0.1)
-                    return True
-                except queue.Full:
-                    continue
-            return False
-
-        def produce():
-            try:
-                for idx in batches:
-                    try:
-                        item = self._load(idx)
-                    except Exception as e:  # a bad tile skips its batch, not the epoch
-                        logger.error("batch load failed, skipping: %s", e)
-                        item = _Failed(e)
-                    if not put(item):
+        def worker():
+            while True:
+                with cond:
+                    while (not state["stop"] and state["claim"] < total
+                           and state["claim"] >= state["emit"] + max_ahead):
+                        cond.wait()
+                    if state["stop"] or state["claim"] >= total:
                         return
-            finally:
-                put(_DONE)
+                    seq = state["claim"]
+                    state["claim"] += 1
+                try:
+                    out: object = self._collate([self.dataset[int(i)] for i in batches[seq]])
+                except Exception as e:
+                    if not self.strict:  # a bad tile skips its batch, not the epoch
+                        logger.error("batch load failed, skipping: %s", e)
+                    out = _Failed(e)
+                with cond:
+                    results[seq] = out
+                    cond.notify_all()
 
-        thread = threading.Thread(target=produce, name="batch-loader", daemon=True)
-        thread.start()
-        produced, last_err = 0, None
+        threads = [threading.Thread(target=worker, name="batch-loader", daemon=True)
+                   for _ in range(workers)]
+        for t in threads:
+            t.start()
+        last_err, produced = None, 0
         try:
-            while (item := q.get()) is not _DONE:
+            for seq in range(total):
+                with cond:
+                    while seq not in results:
+                        cond.wait()
+                    item = results.pop(seq)
+                    state["emit"] = seq + 1
+                    cond.notify_all()
                 if isinstance(item, _Failed):
+                    if self.strict:
+                        raise RuntimeError("batch load failed in strict mode") from item.error
                     last_err = item.error
                     continue
                 produced += 1
                 yield item
-            if batches and produced == 0 and last_err is not None:
+            if total and produced == 0 and last_err is not None:
                 raise RuntimeError("every batch failed to load") from last_err
         finally:
-            stop.set()
-            thread.join()
+            with cond:
+                state["stop"] = True
+                cond.notify_all()
+            for t in threads:
+                t.join()
+

@@ -10,10 +10,17 @@ of their own state) and 16 for the discriminator, as the reference's and
 the JAX package's ``export_pth`` / ``import_pth``, so a checkpoint
 written by any of the three resumes in the others. The JAX package's
 orbax format is not ported.
+
+Load priority chain (main_pipeline.py:227-245, ``resolve_checkpoint``):
+a ``preempted.pth`` left by an interrupted run, then an explicit
+``--input_model``, then the master checkpoint, then
+``_BASELINE_MODEL/BASELINE_MODEL.pth``, then a fresh init. A raw
+generator state dict (the legacy format) loads as the generator alone.
 """
 
 from __future__ import annotations
 
+import logging
 import os
 from pathlib import Path
 from typing import Any, Dict, Optional, Tuple
@@ -21,6 +28,8 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from .state import GANTrainState
+
+logger = logging.getLogger(__name__)
 
 
 def _to_cpu(obj: Any) -> Any:
@@ -65,11 +74,13 @@ def import_pth(path: str | Path, state: GANTrainState) -> Tuple[GANTrainState, D
     when present. The reference layout carries no step count; the
     generator's Adam step is the number of optimizer steps taken, so
     ``state.step`` continues from it. Returns (state, the non-state-dict
-    entries: epoch, config, losses, ...).
+    entries: epoch, config, losses, ...). A raw generator state dict
+    (the legacy format) loads into the generator alone and returns {}.
     """
     obj = torch.load(path, map_location="cpu", weights_only=True)
     if not (isinstance(obj, dict) and "generator_state_dict" in obj):
-        raise ValueError(f"{path}: not a master checkpoint (no generator_state_dict)")
+        state.generator.load_state_dict(obj, strict=True)
+        return state, {}
     state.generator.load_state_dict(obj["generator_state_dict"], strict=True)
     if "discriminator_state_dict" in obj:
         state.discriminator.load_state_dict(obj["discriminator_state_dict"], strict=True)
@@ -80,3 +91,34 @@ def import_pth(path: str | Path, state: GANTrainState) -> Tuple[GANTrainState, D
     steps = [int(s["step"]) for s in state.g_opt.state_dict()["state"].values()]
     state.step = max(steps, default=0)
     return state, {k: v for k, v in obj.items() if not k.endswith("_state_dict")}
+
+
+def resolve_checkpoint(
+    input_model: Optional[str | Path],
+    master_checkpoint: Optional[str | Path],
+    baseline_model: Optional[str | Path] = "_BASELINE_MODEL/BASELINE_MODEL.pth",
+    preempted: Optional[str | Path] = None,
+) -> Optional[Path]:
+    """The checkpoint to start from (JAX ``resolve_checkpoint``).
+
+    A ``preempted`` file outranks every other leg: it exists only if the
+    previous run was interrupted (``training.loop.train`` writes it on a
+    preemption and removes it when a run completes), so re-running the
+    same command continues from the interrupted state even where that
+    command names an ``--input_model``. Then ``input_model``, the master
+    checkpoint and the baseline model, the first that exists; None for a
+    fresh init.
+    """
+    if preempted and Path(preempted).exists():
+        logger.warning(
+            "resuming from preempted checkpoint %s (latest interrupted "
+            "state; outranks input_model/master until consumed by a "
+            "completed run)", preempted,
+        )
+        return Path(preempted)
+    for candidate in (input_model, master_checkpoint, baseline_model):
+        if candidate and Path(candidate).exists():
+            logger.info("using checkpoint: %s", candidate)
+            return Path(candidate)
+    logger.info("no checkpoint found; fresh initialization")
+    return None

@@ -23,7 +23,12 @@ import torch
 
 from ..models.discriminator import Discriminator
 from ..models.generator import PConvUNet
-from ..models.vgg import VGG16Features, vgg_state_from_hwio
+from ..models.vgg import (
+    CONV_CHANNELS,
+    VGG16Features,
+    vgg_state_from_hwio,
+    vgg_state_from_torchvision,
+)
 from .device import resolve_device
 from .torch_compat import discriminator_vars_to_torch_state, generator_vars_to_torch_state
 
@@ -130,4 +135,19 @@ def init_vgg(generator: torch.Generator, device="cuda") -> VGG16Features:
                 fan_in = mod.weight[0].numel()
                 mod.weight.normal_(0.0, math.sqrt(2.0 / fan_in), generator=generator)
                 mod.bias.zero_()
+    return model.to(resolve_device(device))
+
+
+def load_vgg(path: str | Path, device="cuda") -> VGG16Features:
+    """VGG weights from a file, as the JAX package's ``vgg.load_weights`` reads
+    them: an ``.npz`` of HWIO ``conv{i}_kernel`` / ``conv{i}_bias``, or a
+    torchvision VGG16 state dict (whole, or its features alone)."""
+    if str(path).endswith(".npz"):
+        with np.load(path) as data:
+            return vgg_from_jax_params(
+                [(data[f"conv{i}_kernel"], data[f"conv{i}_bias"])
+                 for i in range(len(CONV_CHANNELS))], device)
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    model = VGG16Features()
+    model.load_state_dict(vgg_state_from_torchvision(sd), strict=True)
     return model.to(resolve_device(device))
