@@ -1,4 +1,4 @@
-"""Drive the PyTorch port's 512^2 inference, training, serving and CLI paths once on one CUDA card.
+"""Drive the PyTorch port's 512^2 inference, training, serving, CLI and human-guided paths once on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -99,8 +99,8 @@ Phases, one line of figures each (any failure raises and exits nonzero):
      of the seeded full-width model): exit 0, every inpainted PNG within
      1 grey level of inpaint_directory with the unfused tail, every
      colored PNG the LUT of its inpainted one, 13 K2 (1 one-channel, 0
-     SIMT), 6 K1, 1 K3 and 1 pack launches a forward; ``--mode
-     human_guided_train`` exits 2;
+     SIMT), 6 K1, 1 K3 and 1 pack launches a forward; ``--mesh``, not
+     ported, exits 2;
  15. train_mode: the CLI's ``--mode train`` in-process on a synthetic
      Digimap parent zip (scripts/bench_ingest.py's tiles, seed 7: 4x4
      children, DSM 500^2 .asc, RGB 2000^2 JPEG with green patches,
@@ -129,7 +129,27 @@ Phases, one line of figures each (any failure raises and exits nonzero):
      differing pixels counted), one 4000^2 tile (Digimap's native size)
      by detector, and the train step at batch 8 on ingested tiles (ms,
      samples/s, peak memory), each beside the card's name and power
-     limit.
+     limit;
+ 16. human_guided: the port's portal server in a thread on 127.0.0.1
+     with a JWT secret; a grid's 7 test tiles at 512^2 uploaded through
+     ``upload_results`` (the port's client) and one annotation a tile
+     posted to /save_annotation as the annotator's page posts it (the
+     page and its script served from the port's static files); then
+     the CLI's ``--mode human_guided_train`` in-process under
+     EXPERIMENT_MODE from a seeded full-width master, batch 5 (batches
+     of 5 and 2), 2 epochs, the full loss with the port's seeded VGG:
+     exit 0, the annotations fetched and matched, the human-guided master
+     (its keys, reloaded strictly, weights moved, BatchNorm at the run's
+     4 steps) and its stamped copy, the portal's annotations deleted; 7
+     K1 fwd and 7 K1 bwd a step and no K2, K3 or pack. One HG step's
+     gradients through K1 against torch's own upsample at the train_grad
+     phase's bound (the plain path in TF32 must exceed it); K1 fwd
+     (equal) and bwd (1e-6 of the max) at batches 5 and 2 on the 7
+     shapes; the HG step at batch 5 (ms, samples/s, peak memory), the
+     fetch's seconds and files, the epoch losses; the drill:
+     TERRA_GAN_TPU_FAULT=preempt@0:1 on a one-epoch config exits 75 with
+     preempted.pth after one step, and run again resumes from it (its
+     master one epoch further) and removes it.
 Then a JSON line of per-kernel figures (each with its bound: the larger
 of its bytes over 3.35 TB/s and its operations over the peak of the
 unit it runs on, from this run's shapes: the 67 TFLOP/s of fp32 outside
@@ -145,6 +165,7 @@ Without CUDA it exits nonzero before printing any result.
 
 from __future__ import annotations
 
+import base64
 import contextlib
 import copy
 import ctypes
@@ -164,6 +185,8 @@ import time
 import urllib.error
 import urllib.request
 from pathlib import Path
+from wsgiref.simple_server import WSGIRequestHandler
+from wsgiref.simple_server import make_server as make_wsgi_server
 
 import numpy as np
 import torch
@@ -195,7 +218,7 @@ from terra_gan_tpu_torch.ops.cuda.pconv_kernel import (
 )
 from terra_gan_tpu_torch.config import Config, LoopConfig
 from terra_gan_tpu_torch.data.asc import write_asc
-from terra_gan_tpu_torch.data.dataset import InpaintingDataset
+from terra_gan_tpu_torch.data.dataset import DirectMatchDataset, InpaintingDataset
 from terra_gan_tpu_torch.data.mask_processing import MaskPipeline, MaskType
 from terra_gan_tpu_torch.data.mask_processing.detectors import (
     BuildingDetector,
@@ -214,14 +237,28 @@ from terra_gan_tpu_torch.ops.cuda.upsample_kernel import (
 from terra_gan_tpu_torch.ops.cuda.tail_kernel import fused_decoder_tail, fused_decoder_tail_plain
 from terra_gan_tpu_torch.ops.resize import upsample2x_bilinear
 from terra_gan_tpu_torch.parallel.infer import BatchedInpainter
-from terra_gan_tpu_torch.portal import jwt_auth
+from terra_gan_tpu_torch.losses import human_guided_loss
+from terra_gan_tpu_torch.portal import (
+    PortalClient,
+    jwt_auth,
+    match_human_and_system_masks,
+    upload_results,
+)
+from terra_gan_tpu_torch.portal.server import STATIC_DIR as PORTAL_STATIC
+from terra_gan_tpu_torch.portal.server import create_app as create_portal_app
 from terra_gan_tpu_torch.serving import InpaintClient, InpaintService, make_server
 from terra_gan_tpu_torch.training.checkpoint import export_pth, import_pth
+from terra_gan_tpu_torch.training.human_guided import HumanGuidedTrainer, hg_loss_config
 from terra_gan_tpu_torch.training.loop import FAULT_ENV, train
-from terra_gan_tpu_torch.training.state import GANTrainState
+from terra_gan_tpu_torch.training.state import GANTrainState, adam
 from terra_gan_tpu_torch.training.step import generator_objective, make_train_step
 from terra_gan_tpu_torch.utils import yaml_lite
-from terra_gan_tpu_torch.utils.weights import init_discriminator, init_generator, init_vgg
+from terra_gan_tpu_torch.utils.weights import (
+    init_discriminator,
+    init_generator,
+    init_vgg,
+    load_generator,
+)
 
 SEED = 0
 SIZE = 512
@@ -1139,14 +1176,12 @@ def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
     return ((a - b).norm() / b.norm().clamp_min(1e-300)).item()
 
 
-def g_objective_grads(state, vgg, batch, snapshot, upsample=None):
+def upsample_grads(G, objective, upsample=None):
     """(gradient at dec1's upsample input, {block: weight gradient}) of one
-    forward and backward of the G objective from the snapshot's weights.
-    ``upsample``: None for the model's own path (K1 fwd and bwd), else the
-    upsample of a train-mode forward through plain torch otherwise."""
-    G, D = state.generator, state.discriminator
-    G.load_state_dict(snapshot[0])
-    D.load_state_dict(snapshot[1])
+    forward and backward of ``objective(forward)``, a loss of the train-mode
+    generator ``G``'s forward. ``upsample``: None for the model's own path
+    (K1 fwd and bwd), else the upsample of a forward through plain torch
+    otherwise (``forward`` is then that forward, else None)."""
     G.zero_grad(set_to_none=True)
     up_grad = []
 
@@ -1160,9 +1195,7 @@ def g_objective_grads(state, vgg, batch, snapshot, upsample=None):
             x, m, fused_pconv_eval_plain, upsample, fused_decoder_tail_plain)
     hook = G.dec2.register_forward_hook(capture)
     try:
-        total, *_ = generator_objective(state, batch, vgg, LoopConfig().loss_config(),
-                                        forward=forward)
-        total.backward()
+        objective(forward).backward()
     finally:
         hook.remove()
     blocks = {n: p.grad.detach().clone() for n, p in G.named_parameters()
@@ -1170,18 +1203,24 @@ def g_objective_grads(state, vgg, batch, snapshot, upsample=None):
     return up_grad[0].detach().clone(), blocks
 
 
-def phase_train_grad(dev, counters):
-    imgs, masks = dsm_tiles(TRAIN_BATCH, SIZE, SEED + 8)
-    batch = device_batch(imgs, masks, dev)
-    state, vgg = train_state(SEED + 9, dev)
-    snapshot = (copy.deepcopy(state.generator.state_dict()),
-                copy.deepcopy(state.discriminator.state_dict()))
-    run = lambda up=None: g_objective_grads(state, vgg, batch, snapshot, up)  # noqa: E731
+def g_objective_grads(state, vgg, batch, snapshot, upsample=None):
+    """upsample_grads of the G objective (G and D) from the snapshot's weights."""
+    state.generator.load_state_dict(snapshot[0])
+    state.discriminator.load_state_dict(snapshot[1])
+    return upsample_grads(state.generator, lambda forward: generator_objective(
+        state, batch, vgg, LoopConfig().loss_config(), forward=forward)[0], upsample)
+
+
+def grads_against_plain(counters, run):
+    """``run(upsample)`` (upsample_grads) through the kernels, through torch's
+    own upsample and through it with TF32, cuDNN deterministic: the launches
+    of the kernel run and each run's rel L2 to the plain one, at dec1's
+    upsample input and per block."""
     flags = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
     torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
     try:
         before = [fn.launches for fn in counters]
-        got = {"kernel": run()}
+        got = {"kernel": run(None)}
         kernel_launches = [fn.launches - b for fn, b in zip(counters, before)]
         plain = run(upsample2x_fwd_plain)
         torch.backends.cudnn.allow_tf32 = True
@@ -1193,12 +1232,23 @@ def phase_train_grad(dev, counters):
         torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags
     up = {k: rel_l2(v[0], plain[0]) for k, v in got.items()}
     blocks = {k: {n: rel_l2(v[1][n], plain[1][n]) for n in plain[1]} for k, v in got.items()}
+    return kernel_launches, plain[0].shape, up, blocks
+
+
+def phase_train_grad(dev, counters):
+    imgs, masks = dsm_tiles(TRAIN_BATCH, SIZE, SEED + 8)
+    batch = device_batch(imgs, masks, dev)
+    state, vgg = train_state(SEED + 9, dev)
+    snapshot = (copy.deepcopy(state.generator.state_dict()),
+                copy.deepcopy(state.discriminator.state_dict()))
+    kernel_launches, shape, up, blocks = grads_against_plain(
+        counters, lambda upsample: g_objective_grads(state, vgg, batch, snapshot, upsample))
     worst = {k: max(b.values()) for k, b in blocks.items()}
-    line("train_grad", batch=TRAIN_BATCH, up_grad="x".join(map(str, plain[0].shape)),
+    line("train_grad", batch=TRAIN_BATCH, up_grad="x".join(map(str, shape)),
          kernel_launches=kernel_launches,
          **{f"{k}_up_rel_l2": f"{v:.3e}" for k, v in up.items()},
          **{f"{k}_block_rel_l2_max": f"{v:.3e}" for k, v in worst.items()})
-    for n in plain[1]:
+    for n in blocks["kernel"]:
         print(f"  {n}: " + " ".join(f"{k}={b[n]:.3e}" for k, b in blocks.items()), flush=True)
     require(kernel_launches == [0, 7, 7, 0, 0],
             f"train_grad: kernel path launched {kernel_launches}")
@@ -1684,8 +1734,8 @@ def phase_cli(dev, counters):
             code = main_pipeline.main(["--mode", "evaluate", "--config", "config.yaml"])
             seconds = time.perf_counter() - t0
             launches = read_counts(counters)
-            hg_code = main_pipeline.main(["--mode", "human_guided_train", "--config",
-                                          "config.yaml"])
+            mesh_code = main_pipeline.main(["--mode", "evaluate", "--mesh", "2", "--config",
+                                            "config.yaml"])
         finally:
             for h in logging.root.handlers[:]:  # the CLI's log file lives in tmp
                 logging.root.removeHandler(h)
@@ -1704,13 +1754,13 @@ def phase_cli(dev, counters):
                 lut_ok &= np.array_equal(np.asarray(Image.open(colored)), lut[got])
                 n_png += 1
     forwards = len(CLI_GRIDS) * math.ceil(CLI_TILES / CHUNK)
-    line("cli", exit=code, human_guided_train_exit=hg_code, grids=len(CLI_GRIDS), tiles=n_png,
+    line("cli", exit=code, mesh_exit=mesh_code, grids=len(CLI_GRIDS), tiles=n_png,
          u8_max_diff_vs_unfused=diff, colored_is_lut=lut_ok, forwards=forwards,
          seconds=f"{seconds:.2f}", k2_launches=launches["fused_pconv_eval"],
          k1_launches=launches["upsample2x_fwd"], k3_launches=launches["fused_decoder_tail"],
          k2_variants={v: launches[f"fused_pconv_eval.{v}"] for v in fused_pconv_eval.variants})
     require(code == 0, f"cli: evaluate exited {code}")
-    require(hg_code == 2, f"cli: --mode human_guided_train exited {hg_code}, not 2")
+    require(mesh_code == 2, f"cli: --mesh exited {mesh_code}, not 2")
     require(n_png == len(CLI_GRIDS) * CLI_TILES, f"cli: {n_png} tiles written")
     require(diff <= SLICE_U8_TOL, f"cli: {diff} grey levels from the unfused path")
     require(lut_ok, "cli: a colored PNG is not the LUT of its inpainted PNG")
@@ -1880,6 +1930,20 @@ def batch_sizes(n: int, batch: int) -> set:
     return {min(batch, n - i) for i in range(0, n, batch)}
 
 
+def k1_errors(width: int, b: int, gen, dev):
+    """K1 fwd's largest error and K1 bwd's largest error over max|plain|
+    against their plain versions at the 7 upsample shapes, batch b."""
+    fwd_err = bwd_rel = 0.0
+    for h, c in upsample_shapes(width):
+        u = torch.rand((b, h, h, c), generator=gen).to(dev)
+        g = torch.randn((b, 2 * h, 2 * h, c), generator=gen).to(dev)
+        fwd_err = max(fwd_err, (upsample2x_fwd(u) - upsample2x_fwd_plain(u)).abs().max().item())
+        want_g = upsample2x_bwd_plain(g)
+        bwd_rel = max(bwd_rel, (upsample2x_bwd(g) - want_g).abs().max().item()
+                      / max(want_g.abs().max().item(), 1e-30))
+    return fwd_err, bwd_rel
+
+
 def hold_path_batches(model, tiles: dict, batches, dev) -> None:
     """The kernels at each batch the train mode gave them, against their plain
     versions: the validation forward (the master's weights on ingested
@@ -1910,14 +1974,7 @@ def hold_path_batches(model, tiles: dict, batches, dev) -> None:
                     f"train_mode: K2 {name} at batch {b}: rel err {rel}, "
                     f"masks equal {torch.equal(got_m, want_m)}")
             k2_rel = max(k2_rel, rel)
-        fwd_err = bwd_rel = 0.0
-        for h, c in upsample_shapes(model.base_width):
-            u = torch.rand((b, h, h, c), generator=gen).to(dev)
-            g = torch.randn((b, 2 * h, 2 * h, c), generator=gen).to(dev)
-            fwd_err = max(fwd_err, (upsample2x_fwd(u) - upsample2x_fwd_plain(u)).abs().max().item())
-            want_g = upsample2x_bwd_plain(g)
-            bwd_rel = max(bwd_rel, (upsample2x_bwd(g) - want_g).abs().max().item()
-                          / max(want_g.abs().max().item(), 1e-30))
+        fwd_err, bwd_rel = k1_errors(model.base_width, b, gen, dev)
         line("train_mode_batch", batch=b, nrmse=f"{err:.3e}", dec2_nrmse=f"{feat_err:.3e}",
              k2_rel_max=f"{k2_rel:.3e}", k1_fwd_max_abs_err=f"{fwd_err:.3e}",
              k1_bwd_rel_max=f"{bwd_rel:.3e}")
@@ -2145,6 +2202,307 @@ def phase_train_mode(dev, counters, card: str):
     return launches
 
 
+# the human_guided phase: a grid's 7 test tiles at 512^2, one annotation a
+# tile through the port's portal, the fine-tune at batch 5 (batches of 5
+# and 2) for 2 epochs from a seeded full-width master; the drill runs one
+# epoch without the portal (two batches: it preempts after one step)
+HG_GRID, HG_TILES, HG_BATCH, HG_EPOCHS = "NJ05", 7, 5, 2
+HG_SECRET = "chip-smoke-portal-secret"
+HG_USER = "c0ffee"  # the annotator page's user hash
+HG_FAULT = "preempt@0:1"
+HG_CONFIG = """\
+# the human_guided phase's config: full width, 512^2, the full loss
+training:
+  modes:
+    human_guided:
+      epochs: {epochs}
+      batch_size: 5
+evaluation:
+  checkpoint_dir: ckpts
+experiment_tracking:
+  enabled: false
+data:
+  processed_dir: data/processed
+  output_dir: data/output
+  image_size: 512
+"""
+
+
+class QuietWSGI(WSGIRequestHandler):
+    def log_message(self, *args):
+        pass
+
+
+@contextlib.contextmanager
+def timed_fetches():
+    """Every PortalClient.fetch_annotations call while open: (seconds, files)."""
+    calls = []
+    real = PortalClient.fetch_annotations
+
+    def fetch(self, *args, **kw):
+        t0 = time.perf_counter()
+        out = real(self, *args, **kw)
+        calls.append((time.perf_counter() - t0, len(out or [])))
+        return out
+
+    PortalClient.fetch_annotations = fetch
+    try:
+        yield calls
+    finally:
+        PortalClient.fetch_annotations = real
+
+
+def save_annotations(url: str, names, masks) -> None:
+    """One annotation a portal image, posted to /save_annotation as the
+    annotator's page posts it: a PNG data URL, the image's name, a user hash."""
+    from PIL import Image
+
+    for name, m in zip(names, masks):
+        buf = io.BytesIO()
+        Image.fromarray(m).save(buf, format="PNG")
+        body = json.dumps({"image_name": name, "user_hash": HG_USER,
+                           "mask": "data:image/png;base64,"
+                           + base64.b64encode(buf.getvalue()).decode()}).encode()
+        req = urllib.request.Request(f"{url}/save_annotation", data=body, method="POST",
+                                     headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=60) as resp:
+            require(resp.status == 200, f"human_guided: /save_annotation gave {resp.status}")
+
+
+def human_masks(n: int, size: int, seed: int) -> np.ndarray:
+    """0/255 human annotations: a few rectangles a tile, as drawn strokes."""
+    rng = np.random.default_rng(seed)
+    out = np.zeros((n, size, size), np.uint8)
+    for i in range(n):
+        for _ in range(3):
+            y0, x0 = rng.integers(0, size - 64, 2)
+            out[i, y0 : y0 + rng.integers(8, 64), x0 : x0 + rng.integers(8, 64)] = 255
+    return out
+
+
+def phase_human_guided(dev, counters, card: str):
+    """The CLI's --mode human_guided_train on the card through the port's
+    portal: upload, annotate, fetch, match, fine-tune, the human-guided
+    master, the portal's cleanup; K1 at the run's batches and one HG step's
+    gradients against torch's upsample; the step's figures; the drill."""
+    from PIL import Image
+
+    kernels = counters[:5]
+    names = [f"{HG_GRID[:2].lower()}09{50 + i}" for i in range(HG_TILES)]
+    imgs, masks = dsm_tiles(HG_TILES, SIZE, SEED + 40)
+    humans = human_masks(HG_TILES, SIZE, SEED + 41)
+    pkg_log = logging.getLogger("terra_gan_tpu_torch")
+    log = LogRecords()
+    pkg_log.addHandler(log)
+    server = None
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_hg_") as tmp, contextlib.chdir(tmp):
+            split = Path("data/processed") / HG_GRID / "test"
+            colored = Path("data/output") / HG_GRID / "colored"
+            for i, name in enumerate(names):
+                for path, arr in ((split / "images" / f"{name}.png", imgs[i, ..., 0]),
+                                  (split / "masks" / f"{name}_mask_resized.png", masks[i, ..., 0]),
+                                  (colored / f"{name}_inpainted_colored.png", imgs[i, ..., 0])):
+                    path.parent.mkdir(parents=True, exist_ok=True)
+                    Image.fromarray(arr).save(path)
+            seed_g = init_generator(WIDTH, torch.Generator().manual_seed(SEED + 42), "cpu")
+            seed_sd = {k: v.clone() for k, v in seed_g.state_dict().items()}
+            Path("ckpts").mkdir()
+            torch.save({"epoch": 0, "generator_state_dict": seed_sd}, "ckpts/master_checkpoint.pth")
+
+            # the portal: the port's WSGI server in a thread, JWT bearer auth
+            app = create_portal_app("portal/images", "portal/annotations", secret_key=HG_SECRET)
+            server = make_wsgi_server("127.0.0.1", 0, app, handler_class=QuietWSGI)
+            threading.Thread(target=server.serve_forever, daemon=True).start()
+            url = f"http://127.0.0.1:{server.server_port}"
+            token = jwt_auth.encode({"sub": "chip-smoke"}, HG_SECRET, expires_in=3600)
+            portal_yaml = f'portal:\n  base_url: "{url}"\n  api_key: "{token}"\n'
+            Path("config.yaml").write_text(HG_CONFIG.format(epochs=HG_EPOCHS) + portal_yaml)
+            Path("drill.yaml").write_text(HG_CONFIG.format(epochs=1))
+            cfg = Config.from_dict(yaml_lite.loads(Path("config.yaml").read_text()))
+            t0 = time.perf_counter()
+            require(upload_results(HG_GRID, cfg), "human_guided: upload_results failed")
+            uploaded = sorted(os.listdir("portal/images"))
+            save_annotations(url, uploaded, humans)
+            annotate_s = time.perf_counter() - t0
+            status = PortalClient(url, token).get_annotation_status(HG_GRID)
+            # the annotator's page and its script, as a browser loads them
+            for route, name in (("/", "index.html"), ("/static/annotator.js", "annotator.js")):
+                got, body = http_get(url + route)
+                require(got == 200 and body == (PORTAL_STATIC / name).read_text(),
+                        f"human_guided: {route} did not serve static/{name}")
+
+            # the main path: the CLI's human-guided mode under EXPERIMENT_MODE
+            argv = ["--mode", "human_guided_train", "--grid", HG_GRID, "--config", "config.yaml"]
+            os.environ["EXPERIMENT_MODE"] = "true"
+            try:
+                torch.cuda.synchronize()
+                reset_counts(counters)
+                t0 = time.perf_counter()
+                with timed_fetches() as fetches:
+                    code = main_pipeline.main(argv)
+                torch.cuda.synchronize()
+                run_s = time.perf_counter() - t0
+                launches = read_counts(counters)
+            finally:
+                del os.environ["EXPERIMENT_MODE"]
+            portal_left = sorted(os.listdir("portal/annotations"))
+            fetched = sorted(os.listdir(Path("data/output") / HG_GRID / "human_annotation_masks"))
+            stamped = sorted(Path("ckpts").glob("master_model_human_guided_*.pth"))
+            master = torch.load("ckpts/master_checkpoint.pth", map_location="cpu",
+                                weights_only=True)
+            G = load_generator("ckpts/master_checkpoint.pth", dev)  # strict
+            changed = any(not torch.equal(v.cpu(), seed_sd[k]) for k, v in G.state_dict().items())
+            epoch_losses = [torch.load(Path("ckpts/human_guided") / f"generator_epoch_{e}.pth",
+                                       weights_only=True)["loss"] for e in range(HG_EPOCHS)]
+
+            # one HG step's gradients through K1 against torch's own upsample
+            pairs = match_human_and_system_masks(HG_GRID, cfg)
+            ds = DirectMatchDataset(pairs, size=SIZE)
+            items = [ds[i] for i in range(HG_BATCH)]
+            batch = {k: torch.from_numpy(np.stack([it[k] for it in items])).to(dev)
+                     for k in ("image", "mask", "human_mask")}
+            vgg = init_vgg(torch.Generator().manual_seed(0), dev)  # the CLI's seeded VGG
+            loss_cfg = hg_loss_config(cfg)
+            G.train()
+            snapshot = copy.deepcopy(G.state_dict())
+
+            def hg_grads(upsample):
+                G.load_state_dict(snapshot)
+
+                def objective(forward):
+                    real, mask = batch["image"], batch["mask"]
+                    gen = (forward or G)(real * mask, mask)
+                    return human_guided_loss(gen, real, mask, batch["human_mask"], vgg,
+                                             loss_cfg)[0]
+
+                return upsample_grads(G, objective, upsample)
+
+            grad_launches, up_shape, up, blocks = grads_against_plain(kernels, hg_grads)
+            grad_launches = {fn.__name__: n for fn, n in zip(kernels, grad_launches)}
+            worst = {k: max(b.values()) for k, b in blocks.items()}
+
+            # K1 against its plain version at each batch the run gave it
+            gen = torch.Generator().manual_seed(SEED + 43)
+            held = {b: k1_errors(WIDTH, b, gen, dev) for b in sorted(batch_sizes(HG_TILES,
+                                                                                  HG_BATCH))}
+
+            # the HG step alone on a batch of 5 on the card
+            G.load_state_dict(snapshot)
+            step = HumanGuidedTrainer(cfg).make_step(
+                G, adam(G.parameters(), cfg.training.human_guided.learning_rate))
+            step(batch, vgg)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t1 = time.perf_counter()
+            for _ in range(3):
+                step(batch, vgg)
+            torch.cuda.synchronize()
+            ms_step = (time.perf_counter() - t1) / 3 * 1e3
+            peak = torch.cuda.max_memory_allocated()
+            del G, vgg, batch, snapshot, step
+
+            # the drill: one epoch from the HG master, preempted after its
+            # first step, then run again: it resumes from preempted.pth
+            drill = ["--mode", "human_guided_train", "--grid", HG_GRID, "--config", "drill.yaml"]
+            t0 = time.perf_counter()
+            os.environ[FAULT_ENV] = HG_FAULT
+            try:
+                drill_code = main_pipeline.main(drill)
+            finally:
+                del os.environ[FAULT_ENV]
+            preempted = Path("ckpts/human_guided/preempted.pth")
+            left = preempted.exists()
+            pre = torch.load(preempted, weights_only=True) if left else {}
+            pre_steps = int(pre["model_state_dict"]["enc1.bn.num_batches_tracked"]) if left else 0
+            resume_code = main_pipeline.main(drill)
+            drill_s = time.perf_counter() - t0
+            resumed = torch.load("ckpts/master_checkpoint.pth", weights_only=True)
+            resumed_steps = int(resumed["generator_state_dict"]["enc1.bn.num_batches_tracked"])
+            gone = not preempted.exists()
+    finally:
+        if server is not None:
+            server.shutdown()
+            server.server_close()
+        pkg_log.removeHandler(log)
+        for h in logging.root.handlers[:]:  # the CLI's log file lived in tmp
+            logging.root.removeHandler(h)
+            h.close()
+
+    steps = HG_EPOCHS * math.ceil(HG_TILES / HG_BATCH)
+    master_steps = int(master["generator_state_dict"]["enc1.bn.num_batches_tracked"])
+    keys = {"generator_state_dict", "human_guided", "source_model", "resumed_from_preemption",
+            "grid_square", "best_loss", "config", "vgg_weights_provenance"}
+    line("human_guided", card=repr(card), exit=code, tiles=HG_TILES, batch=HG_BATCH,
+         epochs=HG_EPOCHS, steps=steps, seconds=f"{run_s:.2f}",
+         fetch_s=[f"{t:.4f}" for t, _ in fetches], annotations=[n for _, n in fetches],
+         annotate_s=f"{annotate_s:.2f}", portal_status=status,
+         epoch_losses=[f"{v:.6f}" for v in epoch_losses], best_loss=master.get("best_loss"),
+         master_keys=sorted(master), stamped=len(stamped), master_steps=master_steps,
+         weights_changed=changed, portal_left=len(portal_left), fetched=len(fetched),
+         vgg=master.get("vgg_weights_provenance"),
+         k1_fwd_launches=launches["upsample2x_fwd"], k1_bwd_launches=launches["upsample2x_bwd"],
+         k1_fwd_per_step=launches["upsample2x_fwd"] / steps,
+         k1_bwd_per_step=launches["upsample2x_bwd"] / steps,
+         k2_launches=launches["fused_pconv_eval"], k3_launches=launches["fused_decoder_tail"],
+         pack_launches=launches["pack_pconv_weights"], ms_per_step=f"{ms_step:.2f}",
+         samples_per_s=f"{1e3 * HG_BATCH / ms_step:.2f}", peak_mem_gib=f"{peak / 2**30:.2f}")
+    line("human_guided_grad", batch=HG_BATCH, up_grad="x".join(map(str, up_shape)),
+         kernel_launches=grad_launches,
+         **{f"{k}_up_rel_l2": f"{v:.3e}" for k, v in up.items()},
+         **{f"{k}_block_rel_l2_max": f"{v:.3e}" for k, v in worst.items()})
+    for b, (fwd_err, bwd_rel) in held.items():
+        line("human_guided_batch", batch=b, k1_fwd_max_abs_err=f"{fwd_err:.3e}",
+             k1_bwd_rel_max=f"{bwd_rel:.3e}")
+    line("human_guided_drill", fault=HG_FAULT, exit=drill_code, preempted_pth=left,
+         preempted_epoch=pre.get("epoch"), preempted_steps=pre_steps, resume_exit=resume_code,
+         resumed_from_preemption=resumed.get("resumed_from_preemption"),
+         resumed_steps=resumed_steps, preempted_pth_removed=gone, seconds=f"{drill_s:.2f}")
+    require(code == 0, f"human_guided: the CLI exited {code}")
+    require(uploaded == [f"{HG_GRID}_{n}_inpainted_colored.png" for n in names]
+            and status == {"grid_square": HG_GRID, "total_images": HG_TILES,
+                           "annotated_images": HG_TILES, "completed": True},
+            f"human_guided: the portal held {uploaded}, status {status}")
+    require(len(fetches) == 1 and fetches[0][1] == HG_TILES and len(fetched) == HG_TILES,
+            f"human_guided: fetched {fetches}, {len(fetched)} files")
+    require(set(master) == keys and master["human_guided"] is True
+            and master["grid_square"] == HG_GRID and len(stamped) == 1
+            and master["resumed_from_preemption"] is False
+            and master["source_model"] == str(Path("ckpts/master_checkpoint.pth")),
+            f"human_guided: the master {sorted(master)}, {len(stamped)} stamped copies")
+    require(changed and master_steps == steps,
+            f"human_guided: weights changed {changed}, BatchNorm at {master_steps} steps")
+    require(all(math.isfinite(v) and v > 0 for v in epoch_losses)
+            and master["best_loss"] == min(epoch_losses),
+            f"human_guided: epoch losses {epoch_losses}, best {master['best_loss']}")
+    require(not portal_left, f"human_guided: the portal still holds {portal_left}")
+    want = {"upsample2x_fwd": 7 * steps, "upsample2x_bwd": 7 * steps, "fused_pconv_eval": 0,
+            "fused_decoder_tail": 0, "pack_pconv_weights": 0}
+    require(all(launches[k] == v for k, v in want.items()),
+            f"human_guided: launches {launches}, want {want}")
+    require(grad_launches == {**want, "upsample2x_fwd": 7, "upsample2x_bwd": 7},
+            f"human_guided: the gradient's kernel path launched {grad_launches}")
+    require(up["kernel"] <= GRAD_TOL and worst["kernel"] <= GRAD_TOL,
+            f"human_guided: gradients off by {up['kernel']} (upsample input), "
+            f"{worst['kernel']} (a block)")
+    require(up["tf32"] > GRAD_TOL and worst["tf32"] > GRAD_TOL,
+            f"human_guided: the gradient checks pass the TF32 plain path ({up['tf32']}, "
+            f"{worst['tf32']}): they see nothing")
+    for b, (fwd_err, bwd_rel) in held.items():
+        require(fwd_err <= K1_F32_ABS_TOL and bwd_rel <= K1_BWD_REL_TOL,
+                f"human_guided: K1 at batch {b}: fwd err {fwd_err}, bwd rel err {bwd_rel}")
+    require(drill_code == main_pipeline.PREEMPTED_EXIT and left and pre.get("preempted")
+            and pre.get("epoch") == 0 and pre_steps == steps + 1,
+            f"human_guided: the drill exited {drill_code}, preempted.pth {left}, "
+            f"{pre_steps} steps")
+    # the resumed run starts from preempted.pth and runs its one epoch again
+    require(resume_code == 0 and gone and resumed.get("resumed_from_preemption") is True
+            and resumed_steps == pre_steps + math.ceil(HG_TILES / HG_BATCH),
+            f"human_guided: the resume exited {resume_code}, removed {gone}, "
+            f"{resumed_steps} steps")
+    return launches
+
+
 def main() -> None:
     kind, card = phase_env()
     phase_build()
@@ -2160,7 +2518,8 @@ def main() -> None:
     figures["fused_decoder_tail"] = phase_k3(model, dev)
     del model
     # launches: the main paths' runs, the inference slice, the train epoch,
-    # serving, the doctor, the CLI's evaluate and its train mode
+    # serving, the doctor, the CLI's evaluate, its train mode and its
+    # human-guided mode
     runs.append(phase_train(dev, counters))
     phase_train_grad(dev, counters)
     runs.append(phase_serve(dev, counters))
@@ -2168,6 +2527,7 @@ def main() -> None:
     runs.append(phase_doctor(counters + PROBES))
     runs.append(phase_cli(dev, counters + PROBES))
     runs.append(phase_train_mode(dev, counters + PROBES, card))
+    runs.append(phase_human_guided(dev, counters + PROBES, card))
     launches = dict.fromkeys(read_counts(counters + PROBES), 0)
     for run in runs:
         for name, n in run.items():

@@ -1,6 +1,7 @@
 """The pipeline CLI (counterpart of terra_gan_tpu/cli/main_pipeline.py).
 
-    python -m terra_gan_tpu_torch.cli.main_pipeline --mode {train,evaluate}
+    python -m terra_gan_tpu_torch.cli.main_pipeline
+        --mode {train,evaluate,human_guided_train}
         [--input_model PATH] [--grid GRID] [--config PATH] [--debug]
         [--device cuda|cpu]
     python -m terra_gan_tpu_torch --mode evaluate ...
@@ -25,6 +26,23 @@ The JAX CLI's flags and contracts for the modes the port runs:
     inpaint every test tile of ``--grid`` or of every valid parent grid
     under ``data.processed_dir`` (``inpaint_directory``, whole splits in
     chunks), then colorize them; exit 0 if any tile was written, else 1;
+  * human_guided_train (main_pipeline.py:476-598): fine-tune the
+    generator alone on human annotations. It starts from
+    ``<checkpoint_dir>/human_guided/preempted.pth`` where an interrupted
+    run left one, else from ``--input_model`` or the master checkpoint
+    (``source_model`` records that lineage either way). The grid is
+    ``--grid``, else under EXPERIMENT_MODE the first zip's name, else
+    asked for. With ``portal.base_url`` set the grid's annotations are
+    fetched from the portal (a failure falls back to the local files);
+    they are matched with the test split's system masks and images
+    (``match_human_and_system_masks``), and a ``DirectMatchDataset``
+    whose human masks are not all empty is fine-tuned
+    (``HumanGuidedTrainer``). The generator-only master goes to both
+    ``master_model_human_guided_<ts>.pth`` and the master checkpoint;
+    under EXPERIMENT_MODE the portal's matched annotations are then
+    deleted. Exit 0, 1 when no model, no pair or no non-empty human mask
+    is found, 75 when preempted (re-run to resume; the run starts again
+    at epoch 0, as in the JAX package);
   * env switches: EXPERIMENT_MODE (no interactive prompts,
     main_pipeline.py:602), DOCKER_ENV rebases the data paths under /app
     (main_pipeline.py:33-38);
@@ -32,7 +50,7 @@ The JAX CLI's flags and contracts for the modes the port runs:
 
 It runs on the card unless ``--device cpu`` is given; without CUDA the
 default device raises. Not ported yet, and refused with exit code 2:
-``--mode human_guided_train``, ``--mesh``, and a config that sets
+``--mesh``, and a config that sets
 ``evaluation.quant``, a QAT tail (``training.qat_tail.steps``) or a bf16
 ``training.compute_dtype`` (``bf16`` or ``bfloat16``; ``float32`` or no
 key is the fp32 the port runs). Experiment tracking is not ported: with
@@ -307,6 +325,94 @@ def run_evaluation_mode(
     return total > 0
 
 
+def run_human_guided_training_mode(
+    cfg, input_model: Optional[str] = None, target_grid: Optional[str] = None,
+    device="cuda",
+) -> bool:
+    from ..data.dataset import DirectMatchDataset
+    from ..portal import (
+        PortalClient,
+        fetch_annotations_for_grid,
+        match_human_and_system_masks,
+        validate_dataset,
+    )
+    from ..training.checkpoint import save_pth
+    from ..training.human_guided import HumanGuidedTrainer
+    from ..utils.weights import load_generator
+
+    ckpt_dir = Path(cfg.evaluation.checkpoint_dir) / "human_guided"
+    hg_preempted = ckpt_dir / "preempted.pth"
+    # source_model is the model the fine-tune started from, also across a
+    # resume: the preempted.pth is removed when the run completes
+    source_model = Path(input_model) if input_model else _master_checkpoint_path(cfg)
+    resumed_from_preemption = hg_preempted.exists()
+    if resumed_from_preemption:
+        logger.warning("resuming human-guided training from preempted checkpoint %s",
+                       hg_preempted)
+        model_path = hg_preempted
+    else:
+        model_path = source_model
+    if not model_path.exists():
+        logger.error("no model for human-guided training: %s", model_path)
+        return False
+
+    grid = target_grid
+    if grid is None and experiment_mode():
+        zips = sorted(Path(cfg.data.input_zip_folder).glob("*.zip"))
+        if zips:
+            grid = zips[0].stem.upper()
+    if grid is None:
+        grid = input("Enter grid square for human-guided training: ").strip().upper()
+    if not grid:
+        logger.error("no grid square specified")
+        return False
+
+    client = PortalClient(cfg.portal.base_url, cfg.portal.api_key) if cfg.portal.base_url \
+        else None
+    if client is not None:
+        try:
+            fetch_annotations_for_grid(grid, client, cfg)
+        except Exception as e:
+            logger.warning("portal fetch failed (%s); using local files", e)
+
+    pairs = match_human_and_system_masks(grid, cfg)
+    if not pairs:
+        logger.error("no matched annotation pairs for %s", grid)
+        return False
+    dataset = DirectMatchDataset(pairs, size=_image_size(cfg))
+    if not validate_dataset(dataset):
+        return False
+
+    G = load_generator(model_path, device)
+    vgg, vgg_provenance = _load_vgg(cfg, device)
+    result = HumanGuidedTrainer(cfg).train(G, dataset, checkpoint_dir=ckpt_dir, vgg=vgg)
+
+    # the generator-only master with its provenance (main_pipeline.py:705-737)
+    ckpt = {
+        "generator_state_dict": G.state_dict(),
+        "human_guided": True,
+        "source_model": str(source_model),
+        "resumed_from_preemption": resumed_from_preemption,
+        "grid_square": grid,
+        "best_loss": result["best_loss"],
+        "config": cfg.raw,
+        "vgg_weights_provenance": vgg_provenance,
+    }
+    master = _master_checkpoint_path(cfg)
+    stamp = time.strftime("%Y%m%d_%H%M%S")
+    save_pth(master.parent / f"master_model_human_guided_{stamp}.pth", ckpt)
+    save_pth(master, ckpt)
+    logger.info("human-guided training complete: best_loss=%s", result["best_loss"])
+
+    if client is not None and experiment_mode():
+        try:
+            names = [Path(p["human_mask_path"]).name for p in pairs]
+            client.delete_processed_annotations(grid, names, confirm=True)
+        except Exception as e:
+            logger.warning("portal cleanup failed: %s", e)
+    return True
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
         description="TERRA-GAN pipeline (PyTorch, CUDA)"
@@ -314,7 +420,7 @@ def main(argv=None) -> int:
     parser.add_argument(
         "--mode", required=True,
         choices=["train", "evaluate", "human_guided_train"],
-        help="train or evaluate; human_guided_train is not ported yet",
+        help="train, evaluate or human_guided_train",
     )
     parser.add_argument("--input_model", default=None)
     parser.add_argument("--grid", default=None)
@@ -331,10 +437,6 @@ def main(argv=None) -> int:
     args = parser.parse_args(argv)
 
     setup_logging(args.debug)
-    if args.mode == "human_guided_train":
-        logger.error("--mode %s is not ported yet: the PyTorch port runs --mode train "
-                     "and --mode evaluate", args.mode)
-        return NOT_PORTED_EXIT
     if args.mesh:
         logger.error("--mesh is not ported yet: the PyTorch port runs on one device")
         return NOT_PORTED_EXIT
@@ -364,8 +466,10 @@ def main(argv=None) -> int:
     try:
         if args.mode == "train":
             ok = run_training_mode(cfg, args.input_model, device)
-        else:
+        elif args.mode == "evaluate":
             ok = run_evaluation_mode(cfg, args.input_model, args.grid, device)
+        else:
+            ok = run_human_guided_training_mode(cfg, args.input_model, args.grid, device)
     except TrainingPreempted as e:
         logger.warning("run preempted at epoch %s; latest state saved to %s — re-run "
                        "the same command to resume (exit %d)", e.epoch, e.checkpoint,

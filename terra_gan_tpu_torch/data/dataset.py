@@ -1,17 +1,24 @@
 """Training tiles and the batch loader (counterpart of terra_gan_tpu/data/dataset.py).
 
-Reference contract (mvp_gan/src/utils/dataset.py:14-43, train.py:67-81):
-paired image and mask directories, matched by sorted filename; both
-grayscale and resized to ``size`` with PIL's bilinear filter (the same
-transform for the mask); the mask binarised at > 0 after the resize;
-values scaled to [0, 1]. ``BatchLoader`` is the JAX package's loader,
-so both give the same batch stream for the same seed. Batches are NHWC
-float32 numpy arrays.
+Reference contracts:
+  * InpaintingDataset (mvp_gan/src/utils/dataset.py:14-43,
+    train.py:67-81): paired image and mask directories, matched by sorted
+    filename; both grayscale and resized to ``size`` with PIL's bilinear
+    filter (the same transform for the mask); the mask binarised at > 0
+    after the resize; values scaled to [0, 1].
+  * DirectMatchDataset (direct_match_dataset.py:31-85): (image, system
+    mask, human mask) triplets from matched-pair dicts; the image resized
+    bilinear, both masks NEAREST, binarised at > 0.5; an unreadable item
+    becomes zeros with tile_name "error".
+
+Both keep the decoded uint8 planes in a ``_TileCache``, so later epochs
+pay array math, not PNG decode. ``BatchLoader`` is the JAX package's
+loader, so both give the same batch stream for the same seed. Batches
+are NHWC float32 numpy arrays (other fields, such as tile_name, lists).
 
 Re-implemented here because the JAX package's data modules import its
 config, which needs ``yaml``, and its image helpers, ``cv2``. Producer
-threads decode the next batches while the device computes; the JAX
-loader's decoded-tile cache is not ported.
+threads decode the next batches while the device computes.
 """
 
 from __future__ import annotations
@@ -20,27 +27,86 @@ import logging
 import os
 import threading
 from pathlib import Path
-from typing import Dict, Iterator, List, Optional
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
+from PIL import Image
 
 logger = logging.getLogger(__name__)
 
+TARGET = 512
 
-def _load_gray_u8(path: Path, size: int) -> np.ndarray:
-    from PIL import Image
+# Decoded-tile cache budget (the JAX package's): a cached 512^2 pair is
+# about 512 KB of uint8 planes, so the 256 MB default holds about 500
+# tiles, every real parent split. TERRA_GAN_TPU_TILE_CACHE_MB sets
+# another budget (0 disables).
+DEFAULT_CACHE_BYTES = 256 * 2**20
 
+
+def _cache_budget() -> int:
+    env = os.environ.get("TERRA_GAN_TPU_TILE_CACHE_MB")
+    if env is not None:
+        try:
+            return int(float(env) * 2**20)
+        except ValueError:
+            logger.warning("bad TERRA_GAN_TPU_TILE_CACHE_MB=%r ignored", env)
+    return DEFAULT_CACHE_BYTES
+
+
+class _TileCache:
+    """Insert-until-full cache of decoded uint8 tile tuples.
+
+    An epoch reads every index once, the pattern on which an LRU evicts
+    each entry just before its next use; filling to the budget and then
+    keeping what is there serves the first ``budget`` bytes of tiles from
+    memory every epoch and leaves the rest on the decode path.
+    """
+
+    def __init__(self, budget_bytes: int):
+        self.budget = budget_bytes
+        self.used = 0
+        self._data: Dict[int, Tuple[np.ndarray, ...]] = {}
+        self._lock = threading.Lock()
+
+    def get(self, key: int) -> Optional[Tuple[np.ndarray, ...]]:
+        return self._data.get(key)
+
+    def put(self, key: int, arrays: Tuple[np.ndarray, ...]) -> None:
+        nbytes = sum(a.nbytes for a in arrays)
+        with self._lock:
+            if key in self._data or self.used + nbytes > self.budget:
+                return
+            self._data[key] = arrays
+            self.used += nbytes
+
+
+def _new_cache() -> Optional[_TileCache]:
+    budget = _cache_budget()
+    return _TileCache(budget) if budget > 0 else None
+
+
+def _load_gray_u8(path: str | Path, size: int, resample=Image.BILINEAR) -> np.ndarray:
+    """The (size, size) uint8 plane after the resize: the cacheable form,
+    since the float conversion comes after it."""
     with Image.open(path) as img:
         img = img.convert("L")
         if img.size != (size, size):
-            img = img.resize((size, size), Image.BILINEAR)
+            img = img.resize((size, size), resample)
         return np.asarray(img, np.uint8)
+
+
+def _unit(u8: np.ndarray) -> np.ndarray:
+    return u8.astype(np.float32)[..., None] / 255.0
+
+
+def _plane(u8: np.ndarray) -> np.ndarray:
+    return u8.astype(np.float32)[..., None]
 
 
 class InpaintingDataset:
     """Paired image/mask directories, index-aligned by sorted filename."""
 
-    def __init__(self, img_dir: str | Path, mask_dir: str | Path, size: int = 512):
+    def __init__(self, img_dir: str | Path, mask_dir: str | Path, size: int = TARGET):
         self.size = size
         self.img_files = sorted(p for p in Path(img_dir).iterdir() if p.is_file())
         self.mask_files = sorted(p for p in Path(mask_dir).iterdir() if p.is_file())
@@ -48,17 +114,65 @@ class InpaintingDataset:
             raise ValueError(
                 f"image/mask count mismatch: {len(self.img_files)} vs {len(self.mask_files)}"
             )
+        self._cache = _new_cache()
 
     def __len__(self) -> int:
         return len(self.img_files)
 
     def __getitem__(self, idx: int) -> Dict[str, np.ndarray]:
-        img = _load_gray_u8(self.img_files[idx], self.size)
-        mask = _load_gray_u8(self.mask_files[idx], self.size) > 0
-        return {
-            "image": img.astype(np.float32)[..., None] / 255.0,
-            "mask": mask.astype(np.float32)[..., None],
-        }
+        cached = self._cache.get(idx) if self._cache else None
+        if cached is None:
+            img = _load_gray_u8(self.img_files[idx], self.size)
+            # the reference resizes the mask with the same bilinear
+            # transform, then binarises at > 0 (dataset.py:37)
+            mask = (_load_gray_u8(self.mask_files[idx], self.size) > 0).astype(np.uint8)
+            if self._cache:
+                self._cache.put(idx, (img, mask))
+        else:
+            img, mask = cached
+        return {"image": _unit(img), "mask": _plane(mask)}
+
+
+class DirectMatchDataset:
+    """Triplets for human-guided fine-tuning from matched-pair dicts
+    (``tile_name``, ``image_path``, ``system_mask_path``, ``human_mask_path``)."""
+
+    def __init__(self, matched_pairs: Sequence[Dict], size: int = TARGET):
+        self.pairs = list(matched_pairs)
+        self.size = size
+        self._cache = _new_cache()
+
+    def __len__(self) -> int:
+        return len(self.pairs)
+
+    def _decode(self, pair: Dict) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        image = _load_gray_u8(pair["image_path"], self.size, Image.BILINEAR)
+        # binarised at > 0.5 on the [0, 1] scale (direct_match_dataset.py:54-61):
+        # on the resized uint8 plane that is u8 >= 128
+        system = (_load_gray_u8(pair["system_mask_path"], self.size, Image.NEAREST)
+                  >= 128).astype(np.uint8)
+        human = (_load_gray_u8(pair["human_mask_path"], self.size, Image.NEAREST)
+                 >= 128).astype(np.uint8)
+        if human.sum() == 0:
+            logger.warning("human mask for tile %s is empty", pair.get("tile_name"))
+        return image, system, human
+
+    def __getitem__(self, idx: int) -> Dict:
+        pair = self.pairs[idx]
+        cached = self._cache.get(idx) if self._cache else None
+        if cached is None:
+            try:
+                cached = self._decode(pair)
+            except Exception as e:
+                logger.error("failed to load item %d: %s", idx, e)
+                zero = np.zeros((self.size, self.size, 1), np.float32)
+                return {"image": zero, "mask": zero, "human_mask": zero, "tile_name": "error"}
+            # an error item is never cached: a transient read failure heals later
+            if self._cache:
+                self._cache.put(idx, cached)
+        image, system, human = cached
+        return {"image": _unit(image), "mask": _plane(system), "human_mask": _plane(human),
+                "tile_name": pair.get("tile_name", "")}
 
 
 def default_feed_workers() -> int:

@@ -12,16 +12,20 @@ NHWC tensors, the reference's numerics (mvp_gan/src/utils/losses.py):
     (losses.py:118-127);
   * the boundary term is an area-normalised L1 on the band between a
     fixed 3x3 dilation and erosion of the mask, exactly 0 when the band
-    is empty (losses.py:403-416).
+    is empty (losses.py:403-416);
+  * HumanGuidedLoss = base_loss_weight * InpaintingLoss
+      + human_feedback_weight * (L1 on the human-mask regions
+                                 + boundary_weight * boundary(regions))
+    where the human term is exactly 0 when the regions are empty
+    (losses.py:152-204).
 
 The target's VGG features carry no gradient (the JAX package's
-stop_gradient), so they are computed under ``torch.no_grad()``. The
-human-guided loss comes with the human-guided trainer.
+stop_gradient), so they are computed under ``torch.no_grad()``.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -104,5 +108,44 @@ def inpainting_loss(
     if config.boundary_weight > 0:
         comps["boundary"] = boundary_aware_loss(pred, target, mask)
         total = total + config.boundary_weight * comps["boundary"]
+    comps["total"] = total
+    return total, comps
+
+
+@dataclass
+class HumanGuidedLossConfig:
+    base: InpaintingLossConfig = field(default_factory=InpaintingLossConfig)
+    base_loss_weight: float = 0.7
+    human_feedback_weight: float = 0.3
+
+
+def human_guided_loss(
+    pred: torch.Tensor,
+    target: torch.Tensor,
+    mask: torch.Tensor,
+    human_mask: Optional[torch.Tensor],
+    vgg: Optional[VGG16Features],
+    config: HumanGuidedLossConfig = HumanGuidedLossConfig(),
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """HumanGuidedLoss (losses.py:152-204): (total, components). human_mask
+    [B,H,W,1] or None; its regions are ``human_mask > 0``. Components: those
+    of ``inpainting_loss``, base (its total), human and total."""
+    base_total, comps = inpainting_loss(pred, target, mask, vgg, config.base)
+    comps["base"] = base_total
+    human = torch.zeros((), dtype=pred.dtype, device=pred.device)
+    if human_mask is not None:
+        # float32 0/1 planes, as the JAX package builds them: the boundary
+        # term's area then sums (and adds its epsilon) in float32 whatever
+        # the prediction's type
+        regions = (human_mask > 0).float()
+        human_term = l1_loss(pred * regions, target * regions)
+        if config.base.boundary_weight > 0:
+            human_term = human_term + config.base.boundary_weight * boundary_aware_loss(
+                pred, target, regions)
+        # the reference skips the human term when the regions are empty: a
+        # select, so neither a value nor a gradient of the term leaks through
+        human = torch.where(regions.sum() > 0, human_term, torch.zeros_like(human_term))
+    comps["human"] = human
+    total = config.base_loss_weight * base_total + config.human_feedback_weight * human
     comps["total"] = total
     return total, comps

@@ -42,6 +42,16 @@ def _to_cpu(obj: Any) -> Any:
     return obj
 
 
+def save_pth(path: str | Path, obj: Dict[str, Any]) -> None:
+    """torch.save of ``obj`` with every tensor on the CPU; atomic (a
+    temporary file, then a rename)."""
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    tmp = path.with_name(path.name + ".tmp")
+    torch.save(_to_cpu(obj), tmp)
+    os.replace(tmp, path)
+
+
 def export_pth(
     path: str | Path,
     state: GANTrainState,
@@ -60,11 +70,7 @@ def export_pth(
     }
     if extra:
         ckpt.update(extra)
-    path = Path(path)
-    path.parent.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_name(path.name + ".tmp")
-    torch.save(_to_cpu(ckpt), tmp)
-    os.replace(tmp, path)
+    save_pth(path, ckpt)
 
 
 def import_pth(path: str | Path, state: GANTrainState) -> Tuple[GANTrainState, Dict]:

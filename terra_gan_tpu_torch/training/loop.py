@@ -121,8 +121,10 @@ def _remove_preempted(path: Path) -> None:
         logger.warning("could not remove %s: %s", path, e)
 
 
-def _to_device(batch: Dict[str, np.ndarray], dev: torch.device) -> Dict[str, torch.Tensor]:
-    return {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+def _to_device(batch: Dict[str, Any], dev: torch.device) -> Dict[str, torch.Tensor]:
+    """The batch's arrays on ``dev``; other fields (a list of tile names) stay behind."""
+    return {k: torch.from_numpy(v).to(dev) for k, v in batch.items()
+            if isinstance(v, np.ndarray)}
 
 
 def train(

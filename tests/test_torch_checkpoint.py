@@ -148,9 +148,11 @@ def test_batch_loader_streams_the_jax_batches(tmp_path):
     assert set(np.unique(got[0]["mask"])) <= {0.0, 1.0}
 
 
-def test_batch_loader_skips_a_bad_batch_and_raises_when_all_fail(tmp_path, caplog):
+def test_batch_loader_skips_a_bad_batch_and_raises_when_all_fail(tmp_path, caplog, monkeypatch):
     images, masks = write_tiles(tmp_path, 4, seed=5)
     (images / "t00.png").write_bytes(b"not a png")
+    # no tile cache: every pass decodes the files as they are now
+    monkeypatch.setenv("TERRA_GAN_TPU_TILE_CACHE_MB", "0")
     loader = BatchLoader(InpaintingDataset(images, masks, size=HW), batch_size=2, shuffle=False)
     with caplog.at_level(logging.ERROR):
         batches = list(loader)

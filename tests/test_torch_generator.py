@@ -264,7 +264,8 @@ def test_port_imports_no_jax():
         f"for name in {modules!r}:\n"
         "    importlib.import_module(name.removesuffix('.__init__'))\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
-        "       ('jax', 'flax', 'optax', 'cv2', 'yaml', 'matplotlib', 'terra_gan_tpu')]\n"
+        "       ('jax', 'flax', 'optax', 'cv2', 'yaml', 'matplotlib', 'terra_gan_tpu',\n"
+        "        'requests', 'flask')]\n"
         "assert not bad, bad\n"
         "print(len(sys.modules))\n"
     )

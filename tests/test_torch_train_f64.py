@@ -1,4 +1,4 @@
-"""The port's train-mode generator and one full G+D train step against the JAX package, in f64.
+"""The port's train-mode generator, one full G+D train step and three human-guided steps against the JAX package, in f64.
 
 fp32 comparisons of train-mode gradients are ill-conditioned: train-mode
 BatchNorm at the deep 1x1/2x2 stages amplifies reassociation roundoff to
@@ -16,7 +16,12 @@ inputs without a compute dtype), so with the perceptual term on, the
 perceptual component, g_loss and the G update hold only to fp32 rounding
 of the features. The generator gradients are gated with the perceptual
 term off, as the JAX package's own f64 gate does; the D side of the full
-step does not see VGG and is gated at 1e-9.
+step does not see VGG and is gated at 1e-9. The human-guided step
+(``HumanGuidedTrainer.make_step`` against the JAX package's
+``HumanGuidedTrainer._make_step``) runs three steps at width 8, 32^2,
+batch 2, lr 1e-4, with the perceptual term off, and is gated at 1e-9:
+its losses and components, and the generator's weights and BatchNorm
+statistics after each step.
 """
 
 from __future__ import annotations
@@ -39,6 +44,7 @@ F64_TOL = 1e-9  # the JAX package's f64 gate (tests/test_train_step.py:392-393)
 VGG_F32_TOL = 1e-6  # fp32 rounding of the JAX VGG's features
 LR = 2e-4
 WIDTH, HW = 8, 64
+HG_LR, HG_HW, HG_STEPS = 1e-4, 32, 3
 
 
 def _measure() -> dict:
@@ -190,6 +196,45 @@ def _measure() -> dict:
     (0.5 * bce_with_logits(alt.discriminator(batch["image"]), 1.0)).backward()
     alt.d_opt.step()
     out["d_param_diff_real_half_only"], _ = sd_diffs(alt.discriminator, j_dsd)
+
+    # --- three human-guided steps (G alone, HumanGuidedLoss, Adam at 1e-4) ---
+    from terra_gan_tpu.config import Config as JConfig
+    from terra_gan_tpu.training.human_guided import HumanGuidedTrainer as JHGTrainer
+    from terra_gan_tpu_torch.config import Config
+    from terra_gan_tpu_torch.training.human_guided import HumanGuidedTrainer
+    from terra_gan_tpu_torch.training.state import adam
+
+    hg_raw = {"training": {"loss_weights": {"perceptual": 0.0, "tv": 0.1},
+                           "modes": {"human_guided": {"learning_rate": HG_LR}}}}
+    j_tx = j_adam(HG_LR)
+    j_step = JHGTrainer(JConfig.from_dict(hg_raw))._make_step(jG, j_tx)
+    j_params = jax.tree.map(jnp.array, gv["params"])
+    j_stats = jax.tree.map(jnp.array, gv["batch_stats"])
+    j_opt = j_tx.init(j_params)
+    G = generator_from_jax_variables(np_tree(gv), WIDTH, "cpu").double()
+    step = HumanGuidedTrainer(Config.from_dict(hg_raw)).make_step(G, adam(G.parameters(), HG_LR))
+    hg_rng = np.random.default_rng(31)
+    rows = []
+    for _ in range(HG_STEPS):
+        shape = (2, HG_HW, HG_HW, 1)
+        hb = {"image": hg_rng.random(shape),
+              "mask": (hg_rng.random(shape) > 0.3).astype(np.float64),
+              "human_mask": (hg_rng.random(shape) > 0.85).astype(np.float64)}
+        hb["mask"][:, 8:20, 4:16] = 0.0
+        j_params, j_stats, j_opt, j_loss, j_comps = j_step(
+            j_params, j_stats, j_opt, {k: jnp.asarray(v) for k, v in hb.items()}, None)
+        loss, comps = step({k: torch.from_numpy(v) for k, v in hb.items()}, None)
+        j_sd = generator_vars_to_torch_state({"params": np_tree(j_params),
+                                              "batch_stats": np_tree(j_stats)})
+        params, stats = sd_diffs(G, j_sd)
+        rows.append({
+            "loss_rel": abs(loss.item() - float(j_loss)) / abs(float(j_loss)),
+            "comp_rel": {k: abs(comps[k].item() - float(v)) / max(abs(float(v)), 1e-300)
+                         for k, v in j_comps.items()},
+            "param_diff": params, "stats_rel": stats, "human": comps["human"].item(),
+        })
+    out["hg_steps"] = rows
+    out["hg_comp_names"] = sorted(comps)
     return out
 
 
@@ -234,6 +279,22 @@ def test_train_step_parameters_match_jax_f64(measured):
     # the JAX test's bound: Adam's first step is about lr * sign(grad)
     assert measured["g_param_diff"] < 2.2 * LR
     assert measured["d_param_diff"] < 2.2 * LR
+
+
+def test_human_guided_steps_match_jax_f64(measured):
+    rows = measured["hg_steps"]
+    assert len(rows) == HG_STEPS
+    for r in rows:
+        assert r["loss_rel"] <= F64_TOL, r
+        assert max(r["comp_rel"].values()) <= F64_TOL, r["comp_rel"]
+        assert r["human"] > 0.0  # the human term is on
+    assert set(measured["hg_comp_names"]) == set(rows[0]["comp_rel"]) == {
+        "l1", "tv", "boundary", "base", "human", "total"}
+
+
+def test_human_guided_weights_and_statistics_match_jax_f64(measured):
+    for r in measured["hg_steps"]:
+        assert r["param_diff"] <= F64_TOL and r["stats_rel"] <= F64_TOL, r
 
 
 def test_train_step_d_gradient_includes_the_fake_half(measured):
