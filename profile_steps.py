@@ -1,0 +1,310 @@
+"""Where the device's time and idle go inside the training steps, by the port's ``tg.*`` ranges.
+
+    python3 profile_steps.py --workload gan.hg-b5 --seed 7 [--seconds 51] [--out FILE]
+
+Runs one training cell of BENCHMARK.json (``gan.train-b32`` or
+``gan.hg-b5``) as ``torch_bench/run.py`` does, with its own
+``torch.profiler`` session over the window (the harness's tracing stays
+off), and prints one JSON object: the cell's end-to-end metrics and
+``correct``, then
+
+  * ``busy_s``, ``window_s``, ``idle_pct``: the device's operations
+    alone, with every user annotation left out (the benchmark's
+    ``bench.*`` and any ``record_function`` range's copy on the device's
+    timeline);
+  * ``idle_by_span``: the idle gaps, each put down to the innermost span
+    open when it began, of the benchmark's own (``loader``, ``upload``,
+    ``step``) and the program's ``tg.*`` ranges;
+  * ``device_s_by_span``: each operation put down to the innermost span
+    open when it was launched, matched to its launch on the host by
+    correlation id and compared by time, not thread (``backward()``
+    launches from autograd's device thread while the step's thread waits
+    in ``tg.g_backward``), and a span's device time the union of its
+    operations; ``unattributed``, where no launch matched;
+    ``ops_by_span``, each span's top operations, count and ms a step;
+  * ``per_step``: ``loss_device_ms`` and ``d_device_ms`` (the device time
+    launched in ``tg.loss`` and ``tg.d_step`` over the window's steps;
+    the loss stack's backward, VGG's included, is launched in
+    ``tg.g_backward``), ``alloc_calls`` (the caching allocator's
+    cudaMalloc and cudaFree calls: segments allocated plus freed), and
+    the feed's ``ready_pct`` and ``make_ms`` from ``BatchLoader``'s
+    counters;
+  * ``host_calls``: the host's CUDA runtime and driver calls a step, count
+    and ms by name, and the span each blocking one (malloc, free,
+    synchronise, copy) was made in;
+  * ``counts``: the counters' differences over the window.
+
+The analysis (``PhaseTrace``, ``profiler_events``) is what the harness
+would need to read these as per-layer metrics of traced runs.
+"""
+
+import time
+
+T_START = time.perf_counter()
+
+import argparse  # noqa: E402
+import contextlib  # noqa: E402
+import importlib  # noqa: E402
+import json  # noqa: E402
+from collections import defaultdict  # noqa: E402
+from typing import Dict, List, Optional, Tuple  # noqa: E402
+
+import torch  # noqa: E402
+
+from torch_bench import harness  # noqa: E402
+from torch_bench.run import checkout_caches  # noqa: E402
+
+LAUNCH_PREFIX = "cu"  # the CUDA runtime's and driver's calls on the host: cudaLaunchKernel, ...
+ANNOTATION_PREFIXES = ("bench.", "tg.")
+# calls that can hold the host until the device drains
+BLOCKING = ("cudaMalloc", "cudaFree", "cudaStreamSynchronize", "cudaDeviceSynchronize",
+            "cudaEventSynchronize", "cudaMemcpy", "cudaMemcpyAsync")
+UNATTRIBUTED = "unattributed"
+OUTSIDE = "outside any span"
+
+
+def innermost(marks: List[Tuple[float, float, str]], times: List[float]) -> List[str]:
+    """The innermost of ``marks`` (start, end, name) open at each of
+    ``times`` (sorted): the latest-started one not yet ended, as
+    harness.Trace labels its gaps."""
+    marks = sorted(marks)
+    out, j, active = [], 0, []
+    for t in times:
+        while j < len(marks) and marks[j][0] <= t:
+            active.append(marks[j])
+            j += 1
+        active = [m for m in active if m[1] > t]
+        out.append(max(active)[2] if active else OUTSIDE)
+    return out
+
+
+class PhaseTrace(harness.Trace):
+    """``harness.Trace`` over the device's operations, with the program's
+    ranges among the spans that label the idle gaps, and each operation's
+    device time put down to the innermost span open at its launch.
+
+    ``device_ops``: (start, end, name, correlation id), user annotations
+    already left out; ``launches``: correlation id -> host time of the
+    API call that launched it; ``ranges`` and ``spans``: (start, end,
+    name), the program's and the benchmark's. Times in seconds of one
+    clock."""
+
+    def __init__(self, device_ops, launches: Dict[int, float], ranges, spans,
+                 window: Tuple[float, float]):
+        super().__init__([(s, e, n) for s, e, n, _ in device_ops], list(spans) + list(ranges),
+                         window)
+        w0, w1 = window
+        ops = [(launches.get(c), max(s, w0), min(e, w1), n) for s, e, n, c in device_ops
+               if e > w0 and s < w1]
+        found = sorted(op for op in ops if op[0] is not None)
+        by_label: Dict[str, list] = defaultdict(list)
+        for (_, s, e, n), label in zip(found, innermost(list(spans) + list(ranges),
+                                                        [op[0] for op in found])):
+            by_label[label].append((s, e, n))
+        by_label[UNATTRIBUTED] = [(s, e, n) for at, s, e, n in ops if at is None]
+        # a span's device time is the union of its operations: kernels it
+        # launched on side streams overlap
+        self.device_s_by_span = {k: sum(e - s for s, e in harness.union((s, e) for s, e, _ in v))
+                                 for k, v in by_label.items()}
+        self.ops_by_span: Dict[str, Dict[str, List[float]]] = {}
+        for label, v in by_label.items():  # [count, seconds] by operation name
+            named: Dict[str, List[float]] = defaultdict(lambda: [0, 0.0])
+            for s, e, n in v:
+                named[n][0] += 1
+                named[n][1] += e - s
+            self.ops_by_span[label] = named
+        self.range_n: Dict[str, int] = defaultdict(int)
+        for s, e, n in ranges:
+            if s >= w0 and e <= w1:
+                self.range_n[n] += 1
+        busy = harness.union((s, e) for _, s, e, _ in ops)
+        steps = harness.union((s, e) for s, e, n in spans if n == "step")
+        self.step_busy_s = overlap(busy, steps)
+
+    def phases(self, steps: int = 1, top: int = 5) -> dict:
+        """The trace's numbers by span; ``top`` operations of each span by
+        device time, with their count and ms a step."""
+        by = lambda d: dict(sorted(d.items(), key=lambda kv: -kv[1]))  # noqa: E731
+        ops = {label: {n[:90]: [c / steps, 1e3 * t / steps] for n, (c, t) in
+                       sorted(named.items(), key=lambda kv: -kv[1][1])[:top]}
+               for label, named in self.ops_by_span.items() if named}
+        return {"idle_by_span": by(self.idle_by_span),
+                "device_s_by_span": by(self.device_s_by_span),
+                "ops_by_span": ops, "ranges": dict(sorted(self.range_n.items()))}
+
+
+def overlap(a: List[Tuple[float, float]], b: List[Tuple[float, float]]) -> float:
+    """Total length of the intersection of two merged, sorted interval lists."""
+    i = j = 0
+    total = 0.0
+    while i < len(a) and j < len(b):
+        lo, hi = max(a[i][0], b[j][0]), min(a[i][1], b[j][1])
+        total += max(0.0, hi - lo)
+        if a[i][1] < b[j][1]:
+            i += 1
+        else:
+            j += 1
+    return total
+
+
+def profiler_events(prof):
+    """(device operations, launches, the program's ranges, the window, the
+    host's CUDA calls) of a finished profiler, in seconds of its clock:
+    the operations without user annotations, as (start, end, name,
+    correlation id); the calls as (start, end, name)."""
+    ops, launches, ranges, window, calls = [], {}, [], None, []
+    for e in prof.profiler.kineto_results.events():
+        name = e.name()
+        s = e.start_ns() * 1e-9
+        t = s + e.duration_ns() * 1e-9
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            if not (e.is_user_annotation() or name.startswith(ANNOTATION_PREFIXES)):
+                ops.append((s, t, name, e.correlation_id()))
+        elif name == "bench.window":
+            window = (s, t)
+        elif name.startswith("tg."):
+            ranges.append((s, t, name))
+        elif name.startswith(LAUNCH_PREFIX):  # its correlation id is the kernel's (CUPTI's)
+            launches[e.correlation_id()] = s
+            calls.append((s, t, name))
+    return ops, launches, ranges, window, calls
+
+
+def host_calls(calls, marks, window: Tuple[float, float], steps: int) -> dict:
+    """The host's CUDA calls in the window, a step: count and ms by name
+    (the 8 that took longest), and where the blocking ones were made."""
+    w0, w1 = window
+    calls = sorted(c for c in calls if w0 <= c[0] < w1)
+    n: Dict[str, int] = defaultdict(int)
+    sec: Dict[str, float] = defaultdict(float)
+    for s, e, name in calls:
+        n[name] += 1
+        sec[name] += e - s
+    top = sorted(sec, key=lambda k: -sec[k])[:8]
+    blocking = [c for c in calls if c[2] in BLOCKING]
+    where: Dict[str, Dict[str, int]] = defaultdict(lambda: defaultdict(int))
+    for (_, _, name), label in zip(blocking, innermost(marks, [c[0] for c in blocking])):
+        where[name][label] += 1
+    return {"per_step": {k: [n[k] / steps, 1e3 * sec[k] / steps] for k in top},
+            "blocking_by_span": {k: dict(v) for k, v in where.items()}}
+
+
+def counters(device: torch.device) -> Dict[str, float]:
+    from terra_gan_tpu_torch.data.dataset import BatchLoader
+
+    out = {"feed_batches": BatchLoader.batches, "feed_ready": BatchLoader.ready,
+           "feed_make_s": BatchLoader.make_s}
+    if device.type == "cuda":
+        stats = torch.cuda.memory_stats(device)
+        out.update(segments_allocated=stats.get("segment.all.allocated", 0),
+                   segments_freed=stats.get("segment.all.freed", 0),
+                   alloc_retries=stats.get("num_alloc_retries", 0))
+    return out
+
+
+class PhaseRun(harness.Run):
+    """A run whose window this module profiles, keeping every host span."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.tracing = False  # the harness's own profiler stays off
+        self.phase_trace: Optional[PhaseTrace] = None
+        self.calls: tuple = ()
+
+    @contextlib.contextmanager
+    def span(self, name: str):
+        t0 = time.perf_counter()
+        yield
+        t1 = time.perf_counter()
+        self.span_s[name] += t1 - t0
+        self.span_n[name] += 1
+        self.span_log.append((t0, t1, name))
+
+    @contextlib.contextmanager
+    def window(self):
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            acts.append(torch.profiler.ProfilerActivity.CUDA)
+        with torch.profiler.profile(activities=acts) as prof:
+            with super().window() as t0:
+                before = counters(self.device)
+                yield t0
+                after = counters(self.device)
+        self.counts.update({k: after[k] - before[k] for k in before})
+        ops, launches, ranges, window, calls = profiler_events(prof)
+        w0 = window[0]  # the profiler's clock at t0
+        spans = [(s - t0 + w0, e - t0 + w0, n) for s, e, n in self.span_log]
+        window = (w0, w0 + self.window_s)
+        self.phase_trace = PhaseTrace(ops, launches, ranges, spans, window)
+        self.calls = (calls, spans + ranges, window)  # read once the driver has counted steps
+
+
+def per_step(counts: dict, trace: PhaseTrace) -> dict:
+    steps = counts["steps"]
+    out = {"loss_device_ms": 1e3 * trace.device_s_by_span.get("tg.loss", 0.0) / steps,
+           "d_device_ms": 1e3 * trace.device_s_by_span.get("tg.d_step", 0.0) / steps}
+    if "segments_allocated" in counts:
+        out["alloc_calls"] = (counts["segments_allocated"] + counts["segments_freed"]) / steps
+    if counts["feed_batches"]:
+        out["ready_pct"] = 100.0 * counts["feed_ready"] / counts["feed_batches"]
+        out["make_ms"] = 1e3 * counts["feed_make_s"] / counts["feed_batches"]
+    return out
+
+
+def report(run: PhaseRun) -> dict:
+    res = run.result()
+    tr = run.phase_trace
+    in_step = sum(v for k, v in tr.device_s_by_span.items() if k.startswith("tg."))
+    return {"workload": run.cell["name"], "seed": run.seed, "correct": res["correct"],
+            "device": res["device"]["kind"],
+            "metrics": {k: v["value"] for k, v in res["metrics"].items()},
+            "window_s": tr.window_s, "busy_s": tr.busy_s,
+            "idle_pct": 100.0 * (1.0 - tr.busy_s / tr.window_s) if tr.window_s else None,
+            "step_busy_s": tr.step_busy_s, "tg_device_s": in_step,
+            "unattributed_pct_of_busy": (100.0 * tr.device_s_by_span[UNATTRIBUTED] / tr.busy_s
+                                         if tr.busy_s else None),
+            "per_step": per_step(run.counts, tr), **tr.phases(run.counts["steps"]),
+            "host_calls": host_calls(*run.calls, run.counts["steps"]),
+            "counts": run.counts, "checks": res["checks"]}
+
+
+def profile_cell(args, t_start: float, device: Optional[torch.device] = None,
+                 overrides: Optional[dict] = None) -> dict:
+    """Runs ``args.workload`` once under this module's profiler and returns
+    the report. Without ``device`` the cell's CUDA device has to be there;
+    a test passes the CPU and ``overrides`` of the sizes, as
+    harness.execute takes them."""
+    bench = harness.load_json("BENCHMARK.json")
+    cell = next(w for w in bench["workloads"] if w["name"] == args.workload)
+    if device is None:
+        if not torch.cuda.is_available():
+            raise SystemExit(f"{args.workload} needs a CUDA device")
+        device = torch.device("cuda", 0)
+    run = PhaseRun(args, bench, cell, t_start, device, overrides)
+    if device.type == "cuda":  # the configuration's precision, as harness.execute sets it
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = bool(
+            run.config.get("tf32", False))
+    importlib.import_module(f"torch_bench.drivers.{run.traffic['driver']}").run(run)
+    return report(run)
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--workload", required=True)
+    p.add_argument("--seed", type=int, required=True)
+    p.add_argument("--seconds", type=float, default=None)
+    p.add_argument("--out", default=None, help="append the JSON line to this file too")
+    args = p.parse_args(argv)
+    checkout_caches()
+    args.seconds = args.seconds or harness.load_json("BENCHMARK.json")["run_seconds"]
+    args.trace = 0
+    line = json.dumps(profile_cell(args, T_START))
+    if args.out:
+        with open(args.out, "a") as f:
+            f.write(line + "\n")
+    print(line, flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

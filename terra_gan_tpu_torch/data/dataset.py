@@ -26,6 +26,7 @@ from __future__ import annotations
 import logging
 import os
 import threading
+import time
 from pathlib import Path
 from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
@@ -214,7 +215,18 @@ class BatchLoader:
     same batch stream with 1 or N workers. A batch that fails to load is
     logged and skipped (``strict``: raises instead); an epoch in which
     every batch failed raises.
+
+    Three process-wide counters, read as the difference of two readings
+    like the kernels' ``.launches``: ``batches`` yielded, ``ready``, those
+    of them already made when the consumer first asked (no wait), and
+    ``make_s``, the feed threads' host seconds of decode and collate. Each
+    is updated under the iteration's lock; two loaders iterated at once
+    from different threads may lose an update.
     """
+
+    batches = 0
+    ready = 0
+    make_s = 0.0
 
     def __init__(
         self,
@@ -292,14 +304,17 @@ class BatchLoader:
                         return
                     seq = state["claim"]
                     state["claim"] += 1
+                t0 = time.perf_counter()
                 try:
                     out: object = self._collate([self.dataset[int(i)] for i in batches[seq]])
                 except Exception as e:
                     if not self.strict:  # a bad tile skips its batch, not the epoch
                         logger.error("batch load failed, skipping: %s", e)
                     out = _Failed(e)
+                made = time.perf_counter() - t0
                 with cond:
                     results[seq] = out
+                    BatchLoader.make_s += made
                     cond.notify_all()
 
         threads = [threading.Thread(target=worker, name="batch-loader", daemon=True)
@@ -310,10 +325,14 @@ class BatchLoader:
         try:
             for seq in range(total):
                 with cond:
+                    ready = seq in results
                     while seq not in results:
                         cond.wait()
                     item = results.pop(seq)
                     state["emit"] = seq + 1
+                    if not isinstance(item, _Failed):
+                        BatchLoader.batches += 1
+                        BatchLoader.ready += ready
                     cond.notify_all()
                 if isinstance(item, _Failed):
                     if self.strict:

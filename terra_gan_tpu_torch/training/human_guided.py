@@ -14,7 +14,9 @@ of the finite losses is above 0. Every epoch writes
 
 On a card each step launches K1 forward 7 times in the generator's
 forward and K1 backward 7 times in its backward; the convolutions are
-cuDNN's.
+cuDNN's. Under a profiler a step is the range ``tg.hg_step``, holding in
+order ``tg.g_forward``, ``tg.loss`` (``human_guided_loss`` with VGG),
+``tg.g_backward`` and ``tg.g_adam`` (utils/trace.py).
 
 Preemption is the initial-training loop's (SIGTERM, ``request_preemption``
 or ``TERRA_GAN_TPU_FAULT=preempt@E:B``): at the next batch boundary the
@@ -38,6 +40,7 @@ from ..data.dataset import BatchLoader
 from ..losses import HumanGuidedLossConfig, InpaintingLossConfig, human_guided_loss
 from ..models.generator import PConvUNet
 from ..models.vgg import VGG16Features
+from ..utils.trace import span
 from .checkpoint import save_pth
 from .loop import (
     _PREEMPT,
@@ -83,15 +86,20 @@ class HumanGuidedTrainer:
         loss_cfg = self.loss_config
 
         def step(batch, vgg):
-            generator.train()
-            opt.zero_grad(set_to_none=True)
-            real, mask = batch["image"], batch["mask"]
-            gen = generator(real * mask, mask)
-            total, comps = human_guided_loss(gen, real, mask, batch.get("human_mask"), vgg,
-                                             loss_cfg)
-            total.backward()
-            opt.step()
-            return total.detach(), {k: v.detach() for k, v in comps.items()}
+            with span("tg.hg_step"):
+                generator.train()
+                opt.zero_grad(set_to_none=True)
+                real, mask = batch["image"], batch["mask"]
+                with span("tg.g_forward"):
+                    gen = generator(real * mask, mask)
+                with span("tg.loss"):
+                    total, comps = human_guided_loss(gen, real, mask, batch.get("human_mask"),
+                                                     vgg, loss_cfg)
+                with span("tg.g_backward"):
+                    total.backward()
+                with span("tg.g_adam"):
+                    opt.step()
+                return total.detach(), {k: v.detach() for k, v in comps.items()}
 
         return step
 

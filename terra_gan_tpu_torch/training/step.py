@@ -21,6 +21,13 @@ On a card the G forward launches K1 forward 7 times and its backward K1
 backward 7 times; K2 is the eval stage and is not launched in training.
 Metrics are 0-dim tensors on the device, named as the reference's
 batch metrics (train.py:246-251); reading them synchronises.
+
+Under a profiler the train step is the range ``tg.gan_step``, holding in
+order ``tg.g_forward`` (G's forward), ``tg.loss`` (``inpainting_loss``
+with VGG), ``tg.g_adv`` (D on the generated batch and its BCE),
+``tg.g_backward``, ``tg.g_adam`` and ``tg.d_step`` (D's two forwards,
+its backward and its Adam); G's zero-grad, which launches nothing,
+stays before the forward (utils/trace.py).
 """
 
 from __future__ import annotations
@@ -31,6 +38,7 @@ import torch
 
 from ..losses import InpaintingLossConfig, inpainting_loss
 from ..models.vgg import VGG16Features
+from ..utils.trace import span
 from .state import GANTrainState
 
 Batch = Dict[str, torch.Tensor]
@@ -55,9 +63,12 @@ def generator_objective(
     ``forward_plain``: the reference a card's kernel path is held to).
     """
     real, mask = batch["image"], batch["mask"]
-    gen = (forward or state.generator)(real * mask, mask)
-    recon, comps = inpainting_loss(gen, real, mask, vgg, loss_config)
-    g_adv = bce_with_logits(state.discriminator(gen), 1.0)
+    with span("tg.g_forward"):
+        gen = (forward or state.generator)(real * mask, mask)
+    with span("tg.loss"):
+        recon, comps = inpainting_loss(gen, real, mask, vgg, loss_config)
+    with span("tg.g_adv"):
+        g_adv = bce_with_logits(state.discriminator(gen), 1.0)
     return recon + g_adv, gen, comps, g_adv
 
 
@@ -66,27 +77,31 @@ def make_train_step(loss_config: InpaintingLossConfig = InpaintingLossConfig()):
     [B,H,W,1] on the state's device, mask 1 = preserved."""
 
     def step(state: GANTrainState, batch: Batch, vgg: Optional[VGG16Features]):
-        state.generator.train()
-        D = state.discriminator.train()
+        with span("tg.gan_step"):
+            state.generator.train()
+            D = state.discriminator.train()
 
-        state.g_opt.zero_grad(set_to_none=True)
-        g_total, gen, comps, g_adv = generator_objective(state, batch, vgg, loss_config)
-        g_total.backward()
-        state.g_opt.step()
+            state.g_opt.zero_grad(set_to_none=True)
+            g_total, gen, comps, g_adv = generator_objective(state, batch, vgg, loss_config)
+            with span("tg.g_backward"):
+                g_total.backward()
+            with span("tg.g_adam"):
+                state.g_opt.step()
 
-        state.d_opt.zero_grad(set_to_none=True)  # G's backward filled them
-        fake = gen.detach()
-        real_loss = bce_with_logits(D(batch["image"]), 1.0)
-        fake_loss = bce_with_logits(D(fake), 0.0)
-        d_loss = 0.5 * (real_loss + fake_loss)
-        d_loss.backward()
-        state.d_opt.step()
-        state.step += 1
+            with span("tg.d_step"):
+                state.d_opt.zero_grad(set_to_none=True)  # G's backward filled them
+                fake = gen.detach()
+                real_loss = bce_with_logits(D(batch["image"]), 1.0)
+                fake_loss = bce_with_logits(D(fake), 0.0)
+                d_loss = 0.5 * (real_loss + fake_loss)
+                d_loss.backward()
+                state.d_opt.step()
+            state.step += 1
 
-        metrics = {"g_loss": g_total, "d_loss": d_loss, "real_loss": real_loss,
-                   "fake_loss": fake_loss, "g_adv_loss": g_adv}
-        metrics.update((f"g_{k}", v) for k, v in comps.items() if k != "total")
-        return {k: v.detach() for k, v in metrics.items()}
+            metrics = {"g_loss": g_total, "d_loss": d_loss, "real_loss": real_loss,
+                       "fake_loss": fake_loss, "g_adv_loss": g_adv}
+            metrics.update((f"g_{k}", v) for k, v in comps.items() if k != "total")
+            return {k: v.detach() for k, v in metrics.items()}
 
     return step
 
