@@ -25,7 +25,12 @@ Phases, one line of figures each (any failure raises and exits nonzero):
      (k1_times' method: one kernel node a call, inputs rotated past the
      L2) beside its plain version, cuDNN's conv alone, the SIMT kernel
      enc1 ran on before (still built for other channel counts), an empty
-     launch and its bound;
+     launch and its bound; then K2's train variant (fused_pconv_train, the
+     partial conv before BatchNorm) against its plain version at the 14
+     stages at batches 5, 16 and 32 (NRMSE 1e-5, new_mask equal), its
+     forward's time beside the plain stage's with cuDNN's search off (as
+     the port trains) and on; its 5 kernels built, the MMA and one-channel
+     ones with HMMA;
   4. K1 upsample2x_fwd against its plain version at the 7 decoder
      shapes at batch 2 and 8, fp32 (torch's bits) and, at batch 2, bf16
      (1 ulp); per shape the device ms a call by CUDA graph replay of the
@@ -54,14 +59,17 @@ Phases, one line of figures each (any failure raises and exits nonzero):
   8. train: the port's train() for one epoch over 24 PNG tiles at batch
      8 (3 steps of G+D with the full loss, VGG perceptual included) and
      one validation batch of 8, with seeded G, D and VGG, fp32, TF32
-     off; the launch counts (K1 forward and backward 7 per step, K2 and
-     K3 only in validation), the best checkpoint reloaded strictly into
+     off; the launch counts (K1 forward and backward 7 per step, K2's
+     train variant 14 and the pack 1 per step, K2 and K3 only in
+     validation), the best checkpoint reloaded strictly into
      a fresh state, ms per step, samples/s and peak memory;
   9. train_grad: one batch of 8 through the G objective's forward and
-     backward, once through K1 and once through torch's own upsample,
+     backward, once through the kernels (K1, K2's train variant) and once
+     with torch's own upsample in K1's place (K2's train stages in both),
      cuDNN deterministic: the gradient at dec1's upsample input and the
-     per-block weight gradients held to one bound, which the plain path
-     run in TF32 must exceed;
+     per-block weight gradients held to one bound, which the second run
+     in TF32 must exceed; beside them, information, the same readings of
+     the plain path (torch's upsample, the plain partial conv);
  10. k3: K3 fused_decoder_tail against its plain version on the
      full-width model's own dec2 features and masks at batch 2, 512^2,
      in the model's one-input form and with a seeded k_skip (the JAX
@@ -109,8 +117,8 @@ Phases, one line of figures each (any failure raises and exits nonzero):
      epoch, fp32, the full loss with the port's seeded VGG: exit 0, 16
      raw PNGs and masks, the checkerboard's split metadata, the master
      checkpoint (reloaded strictly, at step 1), its timestamped copy and
-     the metrics JSON with finite losses; 7 K1 fwd and bwd a train step,
-     13 K2 (1 one-channel, 0 SIMT), 6 K1, 1 K3 and 1 pack a validation
+     the metrics JSON with finite losses; 7 K1 fwd and bwd, 14 K2 train
+     stages and 1 pack a train step, 13 K2 (1 one-channel, 0 SIMT), 6 K1, 1 K3 and 1 pack a validation
      forward; each detector's call on every tile of that run's ingest
      (every road, vegetation and field mask non-empty); no error logged
      by the port. Then, at every batch size that run and the drill give
@@ -141,9 +149,10 @@ Phases, one line of figures each (any failure raises and exits nonzero):
      exit 0, the annotations fetched and matched, the human-guided master
      (its keys, reloaded strictly, weights moved, BatchNorm at the run's
      4 steps) and its stamped copy, the portal's annotations deleted; 7
-     K1 fwd and 7 K1 bwd a step and no K2, K3 or pack. One HG step's
-     gradients through K1 against torch's own upsample at the train_grad
-     phase's bound (the plain path in TF32 must exceed it); K1 fwd
+     K1 fwd and 7 K1 bwd, 14 K2 train stages and 1 pack a step and no
+     eval K2 or K3. One HG step's gradients through the kernels (K1, K2's
+     train variant) against torch's upsample in K1's place at the train_grad
+     phase's bound (the torch-upsample run in TF32 must exceed it); K1 fwd
      (equal) and bwd (1e-6 of the max) at batches 5 and 2 on the 7
      shapes; the HG step at batch 5 (ms, samples/s, peak memory), the
      fetch's seconds and files, the epoch losses; the drill:
@@ -211,6 +220,8 @@ from terra_gan_tpu_torch.ops.cuda.pconv_kernel import (
     fold_batch_norm,
     fused_pconv_eval,
     fused_pconv_eval_plain,
+    fused_pconv_train,
+    fused_pconv_train_plain,
     pack_pconv_weight,
     pack_pconv_weights,
     plan_stage,
@@ -282,15 +293,22 @@ K1_BWD_REL_TOL = 1e-6  # of max|plain|: fp32 taps in another order, atomics in t
 ADJOINT_TOL = 1e-6     # |<Ux,g> - <x,U^T g>| over sum|Ux * g|: fp32 rounding of both sides
 N_TRAIN, N_VAL, TRAIN_BATCH = 24, 8, 8
 # Gradients of the G objective at 512^2, batch 8, rel L2 of the kernel path
-# against the plain path, both at the upsample input and per block. With
-# K1 fwd at torch's bits the two differ only in the backward's fp32 sum
-# order (K1 bwd gathers, torch adds with atomics), and torch's plain path
-# against itself already reads 9e-8 at the upsample input and 1.5e-6 a
-# block; the plain path in TF32 reads 7e-2 and 5e-2:
+# against the same forward with torch's upsample in K1's place, both at the
+# upsample input and per block. With K1 fwd at torch's bits and K2's train
+# stages on both sides the two differ only in the backward's fp32 sum order
+# (K1 bwd gathers, torch adds with atomics), and torch's plain path against
+# itself already reads 9e-8 at the upsample input and 1.5e-6 a block; the
+# plain path in TF32 reads 7e-2 and 5e-2. (K2's forward in place of cuDNN's
+# moves them by fp32 sums in another order: 8.9e-4 and 2.6e-4 on an H100.)
 GRAD_TOL = 1e-5
 # K3 against its plain version, NRMSE of the composite: fp32 sums in
 # another order; the plain tail in TF32 must exceed it on the spread weights
 K3_NRMSE_TOL = 1e-5
+# K2's train forward at the training cells' batches: the human-guided
+# step's 5 and the GAN step's 32 and its epoch's last 16
+K2_TRAIN_BATCHES = (5, 16, 32)
+# its output (before BatchNorm) against the plain partial conv: fp32 sums in another order
+K2_TRAIN_NRMSE_TOL = 1e-5
 SERVE_REQUESTS, SERVE_BATCH_ITEMS, SERVE_MAX_BATCH = 16, 4, 8
 SERVE_SECRET = "chip-smoke-secret"
 # K1 is timed at the batch of the other kernels and at the profile's 8
@@ -504,6 +522,15 @@ def phase_build():
     require(len(c1) == 1 and all(r.get("hmma", 0) > 0 for r in c1.values()) and blocks.value >= 2,
             f"build: K2's one-channel kernel is not one with HMMA at 2 blocks an SM: {c1}, "
             f"{blocks.value} blocks an SM")
+    # the train forward's instantiations: the MMA tiles and the one-channel kernel
+    train = {fn: r for fn, r in k2.items() if "_train_kernel" in fn}
+    for fn, r in sorted(train.items()):
+        line("build", k2_train_kernel=fn, registers=r.get("registers"),
+             spill_bytes=r.get("spill_bytes"), hmma=r.get("hmma"))
+    tensor_core = [r for fn, r in train.items() if "mma_train" in fn or "c1_train" in fn]
+    require(len(train) == 5 and len(tensor_core) == 3
+            and all(r.get("hmma", 0) > 0 for r in tensor_core),
+            f"build: K2's train kernels are not 5 (3 with HMMA): {train}")
     smem, blocks, threads, tile = (ctypes.c_int() for _ in range(4))
     check(lib.tg_decoder_tail_info(*(ctypes.byref(v) for v in (smem, blocks, threads, tile))),
           "tg_decoder_tail_info")
@@ -662,6 +689,8 @@ def simt_enc1(args, out_shape, lib=None):
     cout, k = weight.shape[0], weight.shape[-1]
     hwio = weight.permute(2, 3, 1, 0).contiguous()
     lib = lib or load_library()
+    # the eval epilogue (train = 0); a build from before the train flag takes none
+    train = (0,) * (len(lib.tg_pconv_eval_f32.argtypes) - 19)
 
     def call(xm):
         out = torch.empty(out_shape, device=x.device)
@@ -669,7 +698,7 @@ def simt_enc1(args, out_shape, lib=None):
         check(lib.tg_pconv_eval_f32(xm[0].data_ptr(), None, xm[1].data_ptr(), hwio.data_ptr(),
                                     bias.data_ptr(), a.data_ptr(), bb.data_ptr(), out.data_ptr(),
                                     new_mask.data_ptr(), b, h, w, 1, 0, cout, k, stride, padding,
-                                    torch.cuda.current_stream().cuda_stream), "simt_enc1")
+                                    *train, torch.cuda.current_stream().cuda_stream), "simt_enc1")
         return out, new_mask
     return call
 
@@ -712,6 +741,56 @@ def enc1_times(args, packed, versions=None) -> dict:
                 simt_masks_equal=torch.equal(simt_m, want_m),
                 masks_equal=torch.equal(got_m, want_m), flop=flop, tflops=flop / times["ms"] / 1e9,
                 **fig)
+
+
+def phase_k2_train(model, dev):
+    """K2's train forward (``fused_pconv_train``: the partial conv before
+    BatchNorm) against its plain version at the 14 stages at each of
+    K2_TRAIN_BATCHES, forward alone: the error, new_mask, and the times of
+    K2 and of the plain stage with cuDNN's heuristic (its search off, as
+    the port trains) and with its search on (the yardstick)."""
+    gen = torch.Generator().manual_seed(SEED + 50)
+    flags = torch.backends.cudnn.benchmark
+    totals, worst = {}, 0.0
+    for batch in K2_TRAIN_BATCHES:
+        rows = []
+        for name, h, ca, cb, st in stage_geometries(model, SIZE):
+            args, xs, packed = stage_inputs(st, h, ca, cb, batch, gen, dev)
+            x, m, weight, bias, stride, padding = args[:6]
+            kernel = lambda: fused_pconv_train(  # noqa: E731
+                x, m, weight, bias, stride, padding, x_skip=xs, packed=packed)
+            plain = lambda: fused_pconv_train_plain(  # noqa: E731
+                x, m, weight, bias, stride, padding, x_skip=xs)
+            with torch.no_grad():
+                got, got_m = kernel()
+                want, want_m = plain()
+                err = nrmse(got, want)
+                t_k = time_ms(kernel, 5)
+                try:
+                    torch.backends.cudnn.benchmark = False
+                    t_p = time_ms(plain, 5)
+                    torch.backends.cudnn.benchmark = True
+                    t_s = time_ms(plain, 5)
+                finally:
+                    torch.backends.cudnn.benchmark = flags
+            plan = plan_stage(got[..., 0].numel(), got.shape[-1], ca, cb,
+                              weight.shape[-1], sm_count(dev))
+            rows.append(dict(ms=t_k, plain_ms=t_p, searched_ms=t_s))
+            worst = max(worst, err)
+            line("k2_train", batch=batch, stage=name, x=f"{batch}x{h}x{h}x{ca}+{cb}",
+                 variant=plan.variant, splits=plan.splits, nrmse=f"{err:.3e}",
+                 masks_equal=torch.equal(got_m, want_m), ms=f"{t_k:.4f}",
+                 plain_ms=f"{t_p:.4f}", searched_ms=f"{t_s:.4f}")
+            require(torch.isfinite(got).all().item(), f"K2 train {name}: non-finite output")
+            require(err <= K2_TRAIN_NRMSE_TOL, f"K2 train {name} at batch {batch}: NRMSE {err}")
+            require(torch.equal(got_m, want_m), f"K2 train {name}: new_mask differs")
+            del args, xs, packed, got, want, got_m, want_m
+        totals[batch] = {k: sum(r[k] for r in rows) for k in rows[0]}
+        line("k2_train", batch=batch, stages=len(rows),
+             **{k: f"{v:.4f}" for k, v in totals[batch].items()})
+    return {"nrmse_max": worst, **{f"batch{b}": t for b, t in totals.items()},
+            "timing": "forward alone, median of 5 CUDA-event calls; plain_ms with cuDNN's "
+                      "search off (as the port trains), searched_ms with it on"}
 
 
 def _bf16_ulp(v: torch.Tensor) -> torch.Tensor:
@@ -1067,7 +1146,7 @@ def phase_files(model, dev, counters):
         sizes = {Image.open(p).size for p in [one, *outs]}
         line("files", evaluate_launches=one_launches, tiles=N_FILES, written=len(outs),
              sizes=sorted(sizes), seconds=f"{seconds:.2f}")
-        require(one_launches == (13, 6, 0, 1, 1), f"files: evaluate launched {one_launches}")
+        require(one_launches == (13, 6, 0, 1, 1, 0), f"files: evaluate launched {one_launches}")
         require(next(model.parameters()).device == dev, "files: evaluate moved the model")
         require(len(outs) == N_FILES, f"files: wrote {len(outs)} of {N_FILES}")
         require(sizes == {(OUTPUT_SIZE, OUTPUT_SIZE)}, f"files: sizes {sizes}")
@@ -1146,6 +1225,7 @@ def phase_train(dev, counters):
     line("train", tiles=N_TRAIN, val_tiles=N_VAL, batch=TRAIN_BATCH, steps=steps,
          g_loss=f"{losses[0]:.5f}", d_loss=f"{losses[1]:.5f}", val_g_loss=f"{losses[4]:.5f}",
          val_d_loss=f"{losses[5]:.5f}", k2_launches=launches["fused_pconv_eval"],
+         k2_train_launches=launches["fused_pconv_train"],
          k1_fwd_launches=launches["upsample2x_fwd"], k1_bwd_launches=launches["upsample2x_bwd"],
          k3_launches=launches["fused_decoder_tail"],
          train_seconds=f"{seconds:.2f}", ms_per_step=f"{ms_step:.2f}",
@@ -1161,10 +1241,13 @@ def phase_train(dev, counters):
             f"train: K1 fwd launched {launches['upsample2x_fwd']} times: 7 per train step, "
             "6 per validation forward")
     require(launches["fused_pconv_eval"] == 13 * val_fwd
-            and launches["fused_decoder_tail"] == launches["pack_pconv_weights"] == val_fwd,
-            f"train: K2, K3 and the pack launched {launches['fused_pconv_eval']}, "
-            f"{launches['fused_decoder_tail']} and {launches['pack_pconv_weights']} times: 13, 1 "
-            "and 1 per validation forward, none in a train step")
+            and launches["fused_decoder_tail"] == val_fwd
+            and launches["fused_pconv_train"] == 14 * steps
+            and launches["pack_pconv_weights"] == val_fwd + steps,
+            f"train: K2, K3, K2's train variant and the pack launched "
+            f"{launches['fused_pconv_eval']}, {launches['fused_decoder_tail']}, "
+            f"{launches['fused_pconv_train']} and {launches['pack_pconv_weights']} times: 13, 1, "
+            "0 and 1 per validation forward, 0, 0, 14 and 1 per train step")
     require(saved_ok and n_adam[0] == 58 and n_adam[1] == 16,
             f"train: the checkpoint did not reload (Adam entries {n_adam})")
     require(state.generator.training, "train: G left in eval mode after validation")
@@ -1176,12 +1259,14 @@ def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
     return ((a - b).norm() / b.norm().clamp_min(1e-300)).item()
 
 
-def upsample_grads(G, objective, upsample=None):
+def upsample_grads(G, objective, upsample=None, stage=fused_pconv_eval):
     """(gradient at dec1's upsample input, {block: weight gradient}) of one
     forward and backward of ``objective(forward)``, a loss of the train-mode
     generator ``G``'s forward. ``upsample``: None for the model's own path
-    (K1 fwd and bwd), else the upsample of a forward through plain torch
-    otherwise (``forward`` is then that forward, else None)."""
+    (K1 fwd and bwd, K2's train stages), else the upsample of a forward
+    whose PConv stages are ``stage``'s train stages (K2's by default, the
+    plain partial conv with ``fused_pconv_eval_plain``) and whose tail is
+    plain (``forward`` is then that forward, else None)."""
     G.zero_grad(set_to_none=True)
     up_grad = []
 
@@ -1192,7 +1277,7 @@ def upsample_grads(G, objective, upsample=None):
     forward = None
     if upsample is not None:
         forward = lambda x, m: G._run(  # noqa: E731
-            x, m, fused_pconv_eval_plain, upsample, fused_decoder_tail_plain)
+            x, m, stage, upsample, fused_decoder_tail_plain)
     hook = G.dec2.register_forward_hook(capture)
     try:
         objective(forward).backward()
@@ -1203,19 +1288,22 @@ def upsample_grads(G, objective, upsample=None):
     return up_grad[0].detach().clone(), blocks
 
 
-def g_objective_grads(state, vgg, batch, snapshot, upsample=None):
+def g_objective_grads(state, vgg, batch, snapshot, upsample=None, stage=fused_pconv_eval):
     """upsample_grads of the G objective (G and D) from the snapshot's weights."""
     state.generator.load_state_dict(snapshot[0])
     state.discriminator.load_state_dict(snapshot[1])
     return upsample_grads(state.generator, lambda forward: generator_objective(
-        state, batch, vgg, LoopConfig().loss_config(), forward=forward)[0], upsample)
+        state, batch, vgg, LoopConfig().loss_config(), forward=forward)[0], upsample, stage)
 
 
 def grads_against_plain(counters, run):
-    """``run(upsample)`` (upsample_grads) through the kernels, through torch's
-    own upsample and through it with TF32, cuDNN deterministic: the launches
-    of the kernel run and each run's rel L2 to the plain one, at dec1's
-    upsample input and per block."""
+    """``run(upsample[, stage])`` (upsample_grads) through the kernels, through
+    torch's own upsample (the same K2 train stages: K1's forward gives torch's
+    bits, so the two differ in K1's backward alone) and through it with
+    TF32, cuDNN deterministic: the launches of the kernel run and each run's
+    rel L2 to the plain one, at dec1's upsample input and per block. Beside
+    them, "cudnn": torch's upsample and the plain partial conv (cuDNN's
+    forward in place of K2's: fp32 sums in another order), information."""
     flags = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
     torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
     try:
@@ -1223,6 +1311,7 @@ def grads_against_plain(counters, run):
         got = {"kernel": run(None)}
         kernel_launches = [fn.launches - b for fn, b in zip(counters, before)]
         plain = run(upsample2x_fwd_plain)
+        got["cudnn"] = run(upsample2x_fwd_plain, fused_pconv_eval_plain)
         torch.backends.cudnn.allow_tf32 = True
         try:
             got["tf32"] = run(upsample2x_fwd_plain)
@@ -1242,7 +1331,8 @@ def phase_train_grad(dev, counters):
     snapshot = (copy.deepcopy(state.generator.state_dict()),
                 copy.deepcopy(state.discriminator.state_dict()))
     kernel_launches, shape, up, blocks = grads_against_plain(
-        counters, lambda upsample: g_objective_grads(state, vgg, batch, snapshot, upsample))
+        counters, lambda upsample, stage=fused_pconv_eval: g_objective_grads(
+            state, vgg, batch, snapshot, upsample, stage))
     worst = {k: max(b.values()) for k, b in blocks.items()}
     line("train_grad", batch=TRAIN_BATCH, up_grad="x".join(map(str, shape)),
          kernel_launches=kernel_launches,
@@ -1250,7 +1340,8 @@ def phase_train_grad(dev, counters):
          **{f"{k}_block_rel_l2_max": f"{v:.3e}" for k, v in worst.items()})
     for n in blocks["kernel"]:
         print(f"  {n}: " + " ".join(f"{k}={b[n]:.3e}" for k, b in blocks.items()), flush=True)
-    require(kernel_launches == [0, 7, 7, 0, 0],
+    # K2 eval, K1 fwd and bwd, K3, the pack, K2's train variant
+    require(kernel_launches == [0, 7, 7, 0, 1, 14],
             f"train_grad: kernel path launched {kernel_launches}")
     require(up["kernel"] <= GRAD_TOL, f"train_grad: upsample-input gradient off by {up['kernel']}")
     require(worst["kernel"] <= GRAD_TOL, f"train_grad: a block's gradient off by {worst['kernel']}")
@@ -2150,6 +2241,7 @@ def phase_train_mode(dev, counters, card: str):
          k1_fwd_launches=launches["upsample2x_fwd"], k1_bwd_launches=launches["upsample2x_bwd"],
          k2_launches=launches["fused_pconv_eval"], k3_launches=launches["fused_decoder_tail"],
          pack_launches=launches["pack_pconv_weights"],
+         k2_train_launches=launches["fused_pconv_train"],
          k2_variants={v: launches[f"fused_pconv_eval.{v}"] for v in fused_pconv_eval.variants},
          held_batches=sorted(batches), ms_per_step=f"{ms_step:.2f}", batch=TRAIN_MODE_BATCH,
          samples_per_s=f"{1e3 * TRAIN_MODE_BATCH / ms_step:.2f}",
@@ -2183,7 +2275,7 @@ def phase_train_mode(dev, counters, card: str):
             f"train_mode: {steps} steps, {val_fwd} val forwards, master at step {master_step}")
     want = {"upsample2x_fwd": 7 * steps + 6 * val_fwd, "upsample2x_bwd": 7 * steps,
             "fused_pconv_eval": 13 * val_fwd, "fused_decoder_tail": val_fwd,
-            "pack_pconv_weights": val_fwd}
+            "pack_pconv_weights": val_fwd + steps, "fused_pconv_train": 14 * steps}
     require(all(launches[k] == v for k, v in want.items()),
             f"train_mode: launches {launches}, want {want}")
     require_k2_variants("train_mode", launches, val_fwd)
@@ -2287,7 +2379,7 @@ def phase_human_guided(dev, counters, card: str):
     gradients against torch's upsample; the step's figures; the drill."""
     from PIL import Image
 
-    kernels = counters[:5]
+    kernels = counters[:6]  # the model's kernels, not the probes
     names = [f"{HG_GRID[:2].lower()}09{50 + i}" for i in range(HG_TILES)]
     imgs, masks = dsm_tiles(HG_TILES, SIZE, SEED + 40)
     humans = human_masks(HG_TILES, SIZE, SEED + 41)
@@ -2367,7 +2459,7 @@ def phase_human_guided(dev, counters, card: str):
             G.train()
             snapshot = copy.deepcopy(G.state_dict())
 
-            def hg_grads(upsample):
+            def hg_grads(upsample, stage=fused_pconv_eval):
                 G.load_state_dict(snapshot)
 
                 def objective(forward):
@@ -2376,7 +2468,7 @@ def phase_human_guided(dev, counters, card: str):
                     return human_guided_loss(gen, real, mask, batch["human_mask"], vgg,
                                              loss_cfg)[0]
 
-                return upsample_grads(G, objective, upsample)
+                return upsample_grads(G, objective, upsample, stage)
 
             grad_launches, up_shape, up, blocks = grads_against_plain(kernels, hg_grads)
             grad_launches = {fn.__name__: n for fn, n in zip(kernels, grad_launches)}
@@ -2445,7 +2537,9 @@ def phase_human_guided(dev, counters, card: str):
          k1_fwd_per_step=launches["upsample2x_fwd"] / steps,
          k1_bwd_per_step=launches["upsample2x_bwd"] / steps,
          k2_launches=launches["fused_pconv_eval"], k3_launches=launches["fused_decoder_tail"],
-         pack_launches=launches["pack_pconv_weights"], ms_per_step=f"{ms_step:.2f}",
+         pack_launches=launches["pack_pconv_weights"],
+         k2_train_launches=launches["fused_pconv_train"],
+         k2_train_per_step=launches["fused_pconv_train"] / steps, ms_per_step=f"{ms_step:.2f}",
          samples_per_s=f"{1e3 * HG_BATCH / ms_step:.2f}", peak_mem_gib=f"{peak / 2**30:.2f}")
     line("human_guided_grad", batch=HG_BATCH, up_grad="x".join(map(str, up_shape)),
          kernel_launches=grad_launches,
@@ -2477,10 +2571,11 @@ def phase_human_guided(dev, counters, card: str):
             f"human_guided: epoch losses {epoch_losses}, best {master['best_loss']}")
     require(not portal_left, f"human_guided: the portal still holds {portal_left}")
     want = {"upsample2x_fwd": 7 * steps, "upsample2x_bwd": 7 * steps, "fused_pconv_eval": 0,
-            "fused_decoder_tail": 0, "pack_pconv_weights": 0}
+            "fused_decoder_tail": 0, "pack_pconv_weights": steps, "fused_pconv_train": 14 * steps}
     require(all(launches[k] == v for k, v in want.items()),
             f"human_guided: launches {launches}, want {want}")
-    require(grad_launches == {**want, "upsample2x_fwd": 7, "upsample2x_bwd": 7},
+    require(grad_launches == {**want, "upsample2x_fwd": 7, "upsample2x_bwd": 7,
+                              "pack_pconv_weights": 1, "fused_pconv_train": 14},
             f"human_guided: the gradient's kernel path launched {grad_launches}")
     require(up["kernel"] <= GRAD_TOL and worst["kernel"] <= GRAD_TOL,
             f"human_guided: gradients off by {up['kernel']} (upsample input), "
@@ -2509,10 +2604,12 @@ def main() -> None:
 
     dev = torch.device("cuda", 0)
     model = init_generator(WIDTH, torch.Generator().manual_seed(SEED), dev)
-    figures = {"fused_pconv_eval": phase_k2(model, dev), "upsample2x_fwd": phase_k1(model, dev),
+    figures = {"fused_pconv_eval": phase_k2(model, dev),
+               "fused_pconv_train": phase_k2_train(model, dev),
+               "upsample2x_fwd": phase_k1(model, dev),
                "upsample2x_bwd": phase_k1_bwd(model, dev), "pack_pconv_weights": phase_pack(model)}
     counters = (fused_pconv_eval, upsample2x_fwd, upsample2x_bwd, fused_decoder_tail,
-                pack_pconv_weights)
+                pack_pconv_weights, fused_pconv_train)
     runs = [phase_slice(model, dev, counters)]
     phase_files(model, dev, counters)
     figures["fused_decoder_tail"] = phase_k3(model, dev)
@@ -2535,6 +2632,9 @@ def main() -> None:
 
     sources = {
         "fused_pconv_eval": ("pconv_eval.cu", "terra_gan_tpu/ops/pallas/pconv_kernel.py:297"),
+        # K2's train variant: the JAX package's train stage is the plain conv
+        # (terra_gan_tpu/ops/pallas/pconv_kernel.py:28), no TPU kernel
+        "fused_pconv_train": ("pconv_eval.cu", "none"),
         "upsample2x_fwd": ("upsample2x.cu", "terra_gan_tpu/ops/pallas/upsample_kernel.py:198"),
         "upsample2x_bwd": ("upsample2x.cu", "terra_gan_tpu/ops/pallas/upsample_kernel.py:204"),
         "fused_decoder_tail": ("decoder_tail.cu", "terra_gan_tpu/ops/pallas/tail_kernel.py:226"),
@@ -2545,7 +2645,7 @@ def main() -> None:
     }
     require(all(launches[name] > 0 for name in sources),
             f"a kernel of the main paths was never launched there: {launches}")
-    peaks = {"fused_pconv_eval": "k2", "fused_decoder_tail": "k3"}
+    peaks = {"fused_pconv_eval": "k2", "fused_pconv_train": "k2", "fused_decoder_tail": "k3"}
     kernels = [
         {"name": name, "route": "cuda", "source": f"terra_gan_tpu_torch/csrc/{src}",
          "replaces": replaces, "launches": launches[name], **figures[name],

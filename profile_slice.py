@@ -302,7 +302,7 @@ def mma_alternative_ms(args, xs, packed, tile: int, splits: int) -> float:
             packed[0].data_ptr(), packed[1].data_ptr(), bias.data_ptr(), a.data_ptr(),
             bb.data_ptr(), out.data_ptr(), new_mask.data_ptr(),
             None if ws is None else ws.data_ptr(), None if ratio_ws is None else ratio_ws.data_ptr(),
-            b, h, w, ca, cb, cout, k, stride, padding, tile, splits,
+            b, h, w, ca, cb, cout, k, stride, padding, tile, splits, 0,
             torch.cuda.current_stream().cuda_stream), "mma_alternative_ms")
 
     run()

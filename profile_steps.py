@@ -26,9 +26,11 @@ off), and prints one JSON object: the cell's end-to-end metrics and
     launched in ``tg.loss`` and ``tg.d_step`` over the window's steps;
     the loss stack's backward, VGG's included, is launched in
     ``tg.g_backward``), ``alloc_calls`` (the caching allocator's
-    cudaMalloc and cudaFree calls: segments allocated plus freed), and
-    the feed's ``ready_pct`` and ``make_ms`` from ``BatchLoader``'s
-    counters;
+    cudaMalloc and cudaFree calls: segments allocated plus freed), the
+    feed's ``ready_pct`` and ``make_ms`` from ``BatchLoader``'s counters,
+    and ``k2_train_stages`` and ``k2_train_launches`` (by variant), the
+    generator's PConv stages run on K2's train variant
+    (``fused_pconv_train.launches`` and ``.variants``): 14 a forward;
   * ``host_calls``: the host's CUDA runtime and driver calls a step, count
     and ms by name, and the span each blocking one (malloc, free,
     synchronise, copy) was made in;
@@ -191,9 +193,11 @@ def host_calls(calls, marks, window: Tuple[float, float], steps: int) -> dict:
 
 def counters(device: torch.device) -> Dict[str, float]:
     from terra_gan_tpu_torch.data.dataset import BatchLoader
+    from terra_gan_tpu_torch.ops.cuda.pconv_kernel import fused_pconv_train
 
     out = {"feed_batches": BatchLoader.batches, "feed_ready": BatchLoader.ready,
-           "feed_make_s": BatchLoader.make_s}
+           "feed_make_s": BatchLoader.make_s, "k2_train_stages": fused_pconv_train.launches,
+           **{f"k2_train.{v}": n for v, n in fused_pconv_train.variants.items()}}
     if device.type == "cuda":
         stats = torch.cuda.memory_stats(device)
         out.update(segments_allocated=stats.get("segment.all.allocated", 0),
@@ -248,6 +252,10 @@ def per_step(counts: dict, trace: PhaseTrace) -> dict:
     if counts["feed_batches"]:
         out["ready_pct"] = 100.0 * counts["feed_ready"] / counts["feed_batches"]
         out["make_ms"] = 1e3 * counts["feed_make_s"] / counts["feed_batches"]
+    if "k2_train_stages" in counts:
+        out["k2_train_stages"] = counts["k2_train_stages"] / steps
+        out["k2_train_launches"] = {k.split(".", 1)[1]: n / steps for k, n in counts.items()
+                                    if k.startswith("k2_train.")}
     return out
 
 

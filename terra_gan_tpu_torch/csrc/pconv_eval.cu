@@ -16,6 +16,21 @@
 // reference layer; the division is IEEE (no fast math) and the > 0 gate
 // is exact, so 0/1 masks give exactly the reference's new_mask.
 //
+// The train forward (kTrain): the same product, box-sum and ratio, and an
+// epilogue that writes the partial conv alone,
+//
+//   out      = (conv(xm, w) + bias) * ratio,   new_mask = [s > 0],
+//
+// what ops/pconv.py partial_conv2d_split returns. BatchNorm on the batch
+// statistics and the ReLU follow it in PyTorch, and its backward is cuDNN's
+// dgrad and wgrad (ops/cuda/pconv_kernel.py PConvTrain); bn_a and bn_b are
+// not read. Each kernel is a body templated on kTrain: the eval kernels are
+// the bodies at kTrain = false under their own names, the *_train_kernel
+// ones at kTrain = true. Train mode runs it because cuDNN's heuristic,
+// with its search off, takes an FFT path of tens of thousands of small
+// GEMMs a step at some batches (33,024 at batch 5), which the host cannot
+// launch as fast as the device runs them.
+//
 // The MMA variant: an implicit GEMM on the tensor cores in 3xTF32.
 //   M = B*OH*OW output pixels (the batch folded into M), N = Cout,
 //   K = k*k*(Ca+Cb) ordered (ky, kx, c): a K-chunk is kBK = 32 contiguous
@@ -153,14 +168,12 @@ constexpr int kMaxPH = (kTH - 1) * kMaxStride + kMaxK;
 constexpr int kMaxPW = (kTW - 1) * kMaxStride + kMaxK;
 constexpr int kMaxPatch = kMaxPH * kMaxPW;
 
-__global__ void __launch_bounds__(kThreads)
-pconv_simt_kernel(const float* __restrict__ xa, const float* __restrict__ xb,
-                  const float* __restrict__ mask, const float* __restrict__ w,
-                  const float* __restrict__ bias, const float* __restrict__ bn_a,
-                  const float* __restrict__ bn_b, float* __restrict__ out,
-                  float* __restrict__ new_mask, int H, int W, int Ca, int Cb,
-                  int Cout, int k, int stride, int pad, int OH, int OW,
-                  int tiles_x) {
+template <bool kTrain>
+__device__ __forceinline__ void pconv_simt_body(
+    const float* __restrict__ xa, const float* __restrict__ xb, const float* __restrict__ mask,
+    const float* __restrict__ w, const float* __restrict__ bias, const float* __restrict__ bn_a,
+    const float* __restrict__ bn_b, float* __restrict__ out, float* __restrict__ new_mask, int H,
+    int W, int Ca, int Cb, int Cout, int k, int stride, int pad, int OH, int OW, int tiles_x) {
   __shared__ float patch[kCK][kMaxPatch];
   __shared__ float mpatch[kMaxPatch];
   __shared__ float s_ratio[kTH * kTW];
@@ -266,8 +279,11 @@ pconv_simt_kernel(const float* __restrict__ xa, const float* __restrict__ xb,
 
   if (!n_ok) return;
   const float4 bv = *reinterpret_cast<const float4*>(bias + n);
-  const float4 av = *reinterpret_cast<const float4*>(bn_a + n);
-  const float4 cv = *reinterpret_cast<const float4*>(bn_b + n);
+  float4 av, cv;
+  if (!kTrain) {
+    av = *reinterpret_cast<const float4*>(bn_a + n);
+    cv = *reinterpret_cast<const float4*>(bn_b + n);
+  }
   const int oy = oy0 + py;
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
@@ -275,19 +291,48 @@ pconv_simt_kernel(const float* __restrict__ xa, const float* __restrict__ xb,
     if (oy < OH && ox < OW) {
       const float r = s_ratio[py * kTW + px0 + j];
       float4 o;
-      o.x = ((acc[j][0] + bv.x) * r) * av.x + cv.x;
-      o.y = ((acc[j][1] + bv.y) * r) * av.y + cv.y;
-      o.z = ((acc[j][2] + bv.z) * r) * av.z + cv.z;
-      o.w = ((acc[j][3] + bv.w) * r) * av.w + cv.w;
-      // ReLU that keeps a NaN, as torch.relu does
-      o.x = o.x < 0.f ? 0.f : o.x;
-      o.y = o.y < 0.f ? 0.f : o.y;
-      o.z = o.z < 0.f ? 0.f : o.z;
-      o.w = o.w < 0.f ? 0.f : o.w;
+      if (kTrain) {
+        o.x = (acc[j][0] + bv.x) * r;
+        o.y = (acc[j][1] + bv.y) * r;
+        o.z = (acc[j][2] + bv.z) * r;
+        o.w = (acc[j][3] + bv.w) * r;
+      } else {
+        o.x = ((acc[j][0] + bv.x) * r) * av.x + cv.x;
+        o.y = ((acc[j][1] + bv.y) * r) * av.y + cv.y;
+        o.z = ((acc[j][2] + bv.z) * r) * av.z + cv.z;
+        o.w = ((acc[j][3] + bv.w) * r) * av.w + cv.w;
+        // ReLU that keeps a NaN, as torch.relu does
+        o.x = o.x < 0.f ? 0.f : o.x;
+        o.y = o.y < 0.f ? 0.f : o.y;
+        o.z = o.z < 0.f ? 0.f : o.z;
+        o.w = o.w < 0.f ? 0.f : o.w;
+      }
       *reinterpret_cast<float4*>(out + (((size_t)b * OH + oy) * OW + ox) * Cout + n) = o;
     }
   }
 }
+
+#define TG_SIMT_PARAMS                                                                         \
+  const float* __restrict__ xa, const float* __restrict__ xb, const float* __restrict__ mask, \
+      const float* __restrict__ w, const float* __restrict__ bias,                            \
+      const float* __restrict__ bn_a, const float* __restrict__ bn_b, float* __restrict__ out, \
+      float* __restrict__ new_mask, int H, int W, int Ca, int Cb, int Cout, int k, int stride, \
+      int pad, int OH, int OW, int tiles_x
+#define TG_SIMT_ARGS \
+  xa, xb, mask, w, bias, bn_a, bn_b, out, new_mask, H, W, Ca, Cb, Cout, k, stride, pad, OH, OW, tiles_x
+
+__global__ void __launch_bounds__(kThreads) pconv_simt_kernel(TG_SIMT_PARAMS) {
+  pconv_simt_body<false>(TG_SIMT_ARGS);
+}
+
+// at least one block an SM: with the eval kernel's bounds ptxas holds this
+// one to 40 registers and spills
+__global__ void __launch_bounds__(kThreads, 1) pconv_simt_train_kernel(TG_SIMT_PARAMS) {
+  pconv_simt_body<true>(TG_SIMT_ARGS);
+}
+
+#undef TG_SIMT_PARAMS
+#undef TG_SIMT_ARGS
 
 // ----------------------------------------------------------------- MMA
 
@@ -322,8 +367,8 @@ __host__ __device__ constexpr int mma_smem_floats(int bm, int bn, int kk) {
          + bm * kk;                                      // mask taps
 }
 
-template <int WM, int WN>
-__global__ void __launch_bounds__(kMmaThreads, 1) pconv_mma_kernel(const MmaArgs p) {
+template <int WM, int WN, bool kTrain>
+__device__ __forceinline__ void pconv_mma_body(const MmaArgs& p) {
   constexpr int BM = WM * 64;
   constexpr int BN = WN * 32;
   constexpr int kSegA = BM * (kBK / 4) / kMmaThreads;      // 16-byte copies a thread
@@ -565,6 +610,9 @@ __global__ void __launch_bounds__(kMmaThreads, 1) pconv_mma_kernel(const MmaArgs
         if (split) {
           *reinterpret_cast<float2*>(p.ws + ((size_t)z * p.M + pix) * p.Cout + n) =
               make_float2(v0, v1);
+        } else if (kTrain) {
+          *reinterpret_cast<float2*>(p.out + (size_t)pix * p.Cout + n) =
+              make_float2((v0 + p.bias[n]) * ratio, (v1 + p.bias[n + 1]) * ratio);
         } else {
           float2 o;
           o.x = relu_keep_nan(((v0 + p.bias[n]) * ratio) * p.bn_a[n] + p.bn_b[n]);
@@ -576,13 +624,23 @@ __global__ void __launch_bounds__(kMmaThreads, 1) pconv_mma_kernel(const MmaArgs
   }
 }
 
+template <int WM, int WN>
+__global__ void __launch_bounds__(kMmaThreads, 1) pconv_mma_kernel(const MmaArgs p) {
+  pconv_mma_body<WM, WN, false>(p);
+}
+
+template <int WM, int WN>
+__global__ void __launch_bounds__(kMmaThreads, 1) pconv_mma_train_kernel(const MmaArgs p) {
+  pconv_mma_body<WM, WN, true>(p);
+}
+
 // The splits' partial sums added in split order (no atomics), then the
 // epilogue; a block per pixel (grid-stride), a thread per 4 channels.
-__global__ void __launch_bounds__(128)
-pconv_splitk_reduce_kernel(const float* __restrict__ ws, const float* __restrict__ ratio_ws,
-                           const float* __restrict__ bias, const float* __restrict__ bn_a,
-                           const float* __restrict__ bn_b, float* __restrict__ out, int M,
-                           int Cout, int splits) {
+template <bool kTrain>
+__device__ __forceinline__ void pconv_splitk_reduce_body(
+    const float* __restrict__ ws, const float* __restrict__ ratio_ws,
+    const float* __restrict__ bias, const float* __restrict__ bn_a,
+    const float* __restrict__ bn_b, float* __restrict__ out, int M, int Cout, int splits) {
   const size_t plane = (size_t)M * Cout;
   for (int pix = blockIdx.x; pix < M; pix += gridDim.x) {
     const float r = ratio_ws[pix];
@@ -597,6 +655,11 @@ pconv_splitk_reduce_kernel(const float* __restrict__ ws, const float* __restrict
         s.w += v.w;
       }
       const float4 bv = *reinterpret_cast<const float4*>(bias + n);
+      if (kTrain) {
+        *reinterpret_cast<float4*>(out + i) =
+            make_float4((s.x + bv.x) * r, (s.y + bv.y) * r, (s.z + bv.z) * r, (s.w + bv.w) * r);
+        continue;
+      }
       const float4 av = *reinterpret_cast<const float4*>(bn_a + n);
       const float4 cv = *reinterpret_cast<const float4*>(bn_b + n);
       float4 o;
@@ -609,22 +672,43 @@ pconv_splitk_reduce_kernel(const float* __restrict__ ws, const float* __restrict
   }
 }
 
+__global__ void __launch_bounds__(128)
+pconv_splitk_reduce_kernel(const float* __restrict__ ws, const float* __restrict__ ratio_ws,
+                           const float* __restrict__ bias, const float* __restrict__ bn_a,
+                           const float* __restrict__ bn_b, float* __restrict__ out, int M,
+                           int Cout, int splits) {
+  pconv_splitk_reduce_body<false>(ws, ratio_ws, bias, bn_a, bn_b, out, M, Cout, splits);
+}
+
+__global__ void __launch_bounds__(128)
+pconv_splitk_reduce_train_kernel(const float* __restrict__ ws, const float* __restrict__ ratio_ws,
+                                 const float* __restrict__ bias, float* __restrict__ out, int M,
+                                 int Cout, int splits) {
+  pconv_splitk_reduce_body<true>(ws, ratio_ws, bias, nullptr, nullptr, out, M, Cout, splits);
+}
+
 template <int WM, int WN>
-int launch_mma(const MmaArgs& a, cudaStream_t stream) {
+int launch_mma(const MmaArgs& a, bool train, cudaStream_t stream) {
   constexpr int BM = WM * 64;
   constexpr int BN = WN * 32;
   const size_t smem = sizeof(float) * mma_smem_floats(BM, BN, a.k * a.k);
+  auto* const kernel = train ? pconv_mma_train_kernel<WM, WN> : pconv_mma_kernel<WM, WN>;
   // above 48 KB only after this; per call, since it is set per device
-  cudaError_t err = cudaFuncSetAttribute(pconv_mma_kernel<WM, WN>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((a.M + BM - 1) / BM, (a.Cout + BN - 1) / BN, a.splits);
-  pconv_mma_kernel<WM, WN><<<grid, kMmaThreads, smem, stream>>>(a);
+  kernel<<<grid, kMmaThreads, smem, stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess || a.splits == 1) return (int)err;
   const int blocks = a.M < 132 * 16 ? a.M : 132 * 16;
-  pconv_splitk_reduce_kernel<<<blocks, 128, 0, stream>>>(a.ws, a.ratio_ws, a.bias, a.bn_a,
-                                                         a.bn_b, a.out, a.M, a.Cout, a.splits);
+  if (train) {
+    pconv_splitk_reduce_train_kernel<<<blocks, 128, 0, stream>>>(a.ws, a.ratio_ws, a.bias, a.out,
+                                                                 a.M, a.Cout, a.splits);
+  } else {
+    pconv_splitk_reduce_kernel<<<blocks, 128, 0, stream>>>(a.ws, a.ratio_ws, a.bias, a.bn_a,
+                                                           a.bn_b, a.out, a.M, a.Cout, a.splits);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -719,7 +803,8 @@ __device__ __forceinline__ void c1_stage(const C1Args& p, int t, float* raw, int
     c1_stage<false>(p, t, raw, PH);
 }
 
-__global__ void __launch_bounds__(kC1Threads, kC1BlocksPerSm) pconv_c1_kernel(const C1Args p) {
+template <bool kTrain>
+__device__ __forceinline__ void pconv_c1_body(const C1Args& p) {
   extern __shared__ __align__(16) float smem[];
   float* sW = smem;                          // hi, lo [64][56]
   float* sRaw = sW + kC1SmemW;               // [2 buffers][x, mask][21][72]
@@ -747,8 +832,10 @@ __global__ void __launch_bounds__(kC1Threads, kC1BlocksPerSm) pconv_c1_kernel(co
   for (int i = tid; i < kC1MaxN; i += kC1Threads) {
     const bool ok = i < p.Cout;
     sEpi[i] = ok ? p.bias[i] : 0.f;
-    sEpi[kC1MaxN + i] = ok ? p.bn_a[i] : 0.f;
-    sEpi[2 * kC1MaxN + i] = ok ? p.bn_b[i] : 0.f;
+    if (!kTrain) {
+      sEpi[kC1MaxN + i] = ok ? p.bn_a[i] : 0.f;
+      sEpi[2 * kC1MaxN + i] = ok ? p.bn_b[i] : 0.f;
+    }
   }
   // a tap's offset from a pixel's window origin in the planes; a padded
   // tap reads tap 0 (finite, or NaN where the pixel's output is NaN anyway)
@@ -906,8 +993,10 @@ __global__ void __launch_bounds__(kC1Threads, kC1BlocksPerSm) pconv_c1_kernel(co
         for (int jj = 0; jj < 2; ++jj) {
           const int n = 8 * (j + jj) + 2 * tq;
           bv[jj] = *reinterpret_cast<const float2*>(sEpi + n);
-          av[jj] = *reinterpret_cast<const float2*>(sEpi + kC1MaxN + n);
-          cv[jj] = *reinterpret_cast<const float2*>(sEpi + 2 * kC1MaxN + n);
+          if (!kTrain) {
+            av[jj] = *reinterpret_cast<const float2*>(sEpi + kC1MaxN + n);
+            cv[jj] = *reinterpret_cast<const float2*>(sEpi + 2 * kC1MaxN + n);
+          }
         }
 #pragma unroll
         for (int i = 0; i < 2; ++i) {
@@ -917,9 +1006,15 @@ __global__ void __launch_bounds__(kC1Threads, kC1BlocksPerSm) pconv_c1_kernel(co
             float2 o[2];
 #pragma unroll
             for (int jj = 0; jj < 2; ++jj) {
-              o[jj].x = relu_keep_nan(((acc[i][j + jj][2 * h] + bv[jj].x) * r) * av[jj].x + cv[jj].x);
-              o[jj].y =
-                  relu_keep_nan(((acc[i][j + jj][2 * h + 1] + bv[jj].y) * r) * av[jj].y + cv[jj].y);
+              if (kTrain) {
+                o[jj].x = (acc[i][j + jj][2 * h] + bv[jj].x) * r;
+                o[jj].y = (acc[i][j + jj][2 * h + 1] + bv[jj].y) * r;
+              } else {
+                o[jj].x =
+                    relu_keep_nan(((acc[i][j + jj][2 * h] + bv[jj].x) * r) * av[jj].x + cv[jj].x);
+                o[jj].y = relu_keep_nan(((acc[i][j + jj][2 * h + 1] + bv[jj].y) * r) * av[jj].y +
+                                        cv[jj].y);
+              }
             }
             const int ox = ox0 + 16 * i + 8 * h + g;
             const bool in = oy < p.OH && ox < p.OW;
@@ -942,6 +1037,15 @@ __global__ void __launch_bounds__(kC1Threads, kC1BlocksPerSm) pconv_c1_kernel(co
     }
   }
   cp_async_wait<0>();
+}
+
+__global__ void __launch_bounds__(kC1Threads, kC1BlocksPerSm) pconv_c1_kernel(const C1Args p) {
+  pconv_c1_body<false>(p);
+}
+
+__global__ void __launch_bounds__(kC1Threads, kC1BlocksPerSm)
+    pconv_c1_train_kernel(const C1Args p) {
+  pconv_c1_body<true>(p);
 }
 
 // ---------------------------------------------------------------- pack
@@ -987,7 +1091,9 @@ __global__ void __launch_bounds__(256) pack_tf32_kernel(const __grid_constant__ 
 
 }  // namespace
 
-// Plain C entry points for ctypes. x_b may be null when Cb == 0.
+// Plain C entry points for ctypes. x_b may be null when Cb == 0. With
+// train != 0 a stage writes the train forward's output (bn_a and bn_b are
+// not read and may be null), else the eval forward's.
 // Each returns the cudaError_t of its launches (0 on success).
 
 // SIMT variant; w is HWIO ([k][k][Ca+Cb][Cout]).
@@ -996,10 +1102,10 @@ extern "C" int tg_pconv_eval_f32(const float* xa, const float* xb,
                                  const float* bias, const float* bn_a,
                                  const float* bn_b, float* out, float* new_mask,
                                  int B, int H, int W, int Ca, int Cb, int Cout,
-                                 int k, int stride, int pad, void* stream) {
+                                 int k, int stride, int pad, int train, void* stream) {
   if (k < 1 || k > kMaxK || stride < 1 || stride > kMaxStride || pad < 0 ||
       Ca < 1 || Cb < 0 || Cout < 4 || Cout % 4 != 0 || B < 1 ||
-      B > 65535) {
+      B > 65535 || (!train && (bn_a == nullptr || bn_b == nullptr))) {
     return (int)cudaErrorInvalidValue;
   }
   const int OH = (H + 2 * pad - k) / stride + 1;
@@ -1008,7 +1114,8 @@ extern "C" int tg_pconv_eval_f32(const float* xa, const float* xb,
   const int tiles_y = (OH + kTH - 1) / kTH;
   const int tiles_x = (OW + kTW - 1) / kTW;
   const dim3 grid(tiles_y * tiles_x, (Cout + kBN - 1) / kBN, B);
-  pconv_simt_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+  auto* const kernel = train ? pconv_simt_train_kernel : pconv_simt_kernel;
+  kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
       xa, xb, mask, w, bias, bn_a, bn_b, out, new_mask, H, W, Ca, Cb, Cout, k,
       stride, pad, OH, OW, tiles_x);
   return (int)cudaGetLastError();
@@ -1028,10 +1135,11 @@ extern "C" int tg_pconv_eval_mma_f32(const float* xa, const float* xb, const flo
                                      const float* bn_a, const float* bn_b, float* out,
                                      float* new_mask, float* ws, float* ratio_ws, int B, int H,
                                      int W, int Ca, int Cb, int Cout, int k, int stride,
-                                     int pad, int tile, int splits, void* stream) {
+                                     int pad, int tile, int splits, int train, void* stream) {
   if (k < 1 || k > kMaxK || stride < 1 || stride > kMaxStride || pad < 0 || Ca < 4 ||
       Ca % 4 != 0 || Cb < 0 || Cb % 4 != 0 || Cout < 4 || Cout % 4 != 0 || B < 1 ||
-      (tile != 0 && tile != 1) || splits < 1 || (Cb > 0 && xb == nullptr)) {
+      (tile != 0 && tile != 1) || splits < 1 || (Cb > 0 && xb == nullptr) ||
+      (!train && (bn_a == nullptr || bn_b == nullptr))) {
     return (int)cudaErrorInvalidValue;
   }
   const int OH = (H + 2 * pad - k) / stride + 1;
@@ -1069,8 +1177,8 @@ extern "C" int tg_pconv_eval_mma_f32(const float* xa, const float* xb, const flo
       tg_pconv_mma_smem_bytes(tile, k) > 232448) {  // a block's shared memory on sm_90
     return (int)cudaErrorInvalidValue;
   }
-  return tile == 0 ? launch_mma<2, 4>(a, (cudaStream_t)stream)
-                   : launch_mma<4, 2>(a, (cudaStream_t)stream);
+  return tile == 0 ? launch_mma<2, 4>(a, train != 0, (cudaStream_t)stream)
+                   : launch_mma<4, 2>(a, train != 0, (cudaStream_t)stream);
 }
 
 // The one-channel variant's dynamic shared memory, the blocks an SM holds,
@@ -1098,10 +1206,11 @@ extern "C" int tg_pconv_eval_c1_f32(const float* x, const float* mask, const flo
                                     const float* w_lo, const float* bias, const float* bn_a,
                                     const float* bn_b, float* out, float* new_mask, int B, int H,
                                     int W, int Cout, int k, int stride, int pad, int grid,
-                                    void* stream) {
+                                    int train, void* stream) {
   if (k < 1 || k > kMaxK || stride < 1 || stride > kMaxStride || pad < 0 || Cout < 8 ||
       Cout > kC1MaxN || Cout % 8 != 0 || B < 1 || H < 1 || W < 1 || grid < 1 ||
-      w_hi == nullptr || w_lo == nullptr || (long long)B * H * W >= (1LL << 31)) {
+      w_hi == nullptr || w_lo == nullptr || (long long)B * H * W >= (1LL << 31) ||
+      (!train && (bn_a == nullptr || bn_b == nullptr))) {
     return (int)cudaErrorInvalidValue;
   }
   const int OH = (H + 2 * pad - k) / stride + 1;
@@ -1133,11 +1242,12 @@ extern "C" int tg_pconv_eval_c1_f32(const float* x, const float* mask, const flo
   a.tiles_y = tiles_y;
   a.tiles = (int)tiles;
   const int smem = (int)sizeof(float) * kC1SmemFloats;
+  auto* const kernel = train ? pconv_c1_train_kernel : pconv_c1_kernel;
   // above 48 KB only after this; per call, since it is set per device
-  cudaError_t err = cudaFuncSetAttribute(pconv_c1_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  pconv_c1_kernel<<<grid, kC1Threads, smem, (cudaStream_t)stream>>>(a);
+  kernel<<<grid, kC1Threads, smem, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 

@@ -19,12 +19,14 @@ up, so pad-to-match crops), and in train mode (K3 has no backward),
 the forward runs the unfused tail, ``tail_forward``.
 
 In eval mode every PConv stage outside K3 is one ``fused_pconv_eval``
-call (K2), whose TF32 weight planes the forward packs for all stages in
-one launch first (``packed_weights``), so they are never older than
-the weights; in train mode a stage is ``ops.pconv.partial_conv2d_split``,
-then ``nn.BatchNorm2d`` on the batch statistics (torch's own train-mode
-semantics, which the JAX package's ``TorchBatchNorm`` emulates), then
-ReLU. In both modes every bilinear x2 outside K3 is
+call (K2); in train mode a stage is ``fused_pconv_train``, K2's train
+variant with cuDNN's dgrad and wgrad as its backward, whose output is
+``ops.pconv.partial_conv2d_split``'s, then ``nn.BatchNorm2d`` on the
+batch statistics (torch's own train-mode semantics, which the JAX
+package's ``TorchBatchNorm`` emulates), then ReLU. In both modes the
+forward packs K2's TF32 weight planes for all stages in one launch first
+(``packed_weights``), so they are never older than the weights, and
+every bilinear x2 outside K3 is
 ``upsample2x_bilinear``: K1 forward, and in training K1 backward, on a
 card; their plain versions on the CPU. The nearest upsample,
 pad-to-match, mask merge and, in the unfused tail, the final conv,
@@ -54,7 +56,6 @@ from ..ops.cuda.pconv_kernel import (
 )
 from ..ops.cuda.tail_kernel import fused_decoder_tail, fused_decoder_tail_plain
 from ..ops.cuda.upsample_kernel import upsample2x_fwd_plain
-from ..ops.pconv import partial_conv2d_split
 from ..ops.resize import pad_to_match, upsample2x_bilinear, upsample2x_nearest
 
 StageFn = Callable[..., Tuple[torch.Tensor, torch.Tensor]]
@@ -102,14 +103,15 @@ class PConv2d(nn.Module):
 
         ``stage`` is the eval-mode stage (K2 or its plain version, both
         taking ``packed``, the weight's planes packed in this forward; K2
-        packs its own without them); train mode is plain torch whatever
-        it is.
+        packs its own without them); train mode takes its partial conv
+        from ``stage.train`` (K2's train Function, or the plain
+        ``partial_conv2d_split``), then BatchNorm on the batch statistics
+        and ReLU.
         """
         if self.training:
-            parts = (x,) if skip is None else (x, skip)
-            kernel = self.input_conv.weight.permute(2, 3, 1, 0)  # HWIO
-            out, new_mask = partial_conv2d_split(
-                parts, mask, kernel, self.input_conv.bias, self.stride, self.padding
+            out, new_mask = stage.train(
+                x, mask, self.input_conv.weight, self.input_conv.bias, self.stride,
+                self.padding, x_skip=skip, packed=packed,
             )
             out = self.bn(out.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
             return torch.relu(out), new_mask
@@ -149,9 +151,8 @@ class PConvUNet(nn.Module):
         self._planes, self._planes_key = None, None  # packed_weights' buffers
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-        planes = self.packed_weights() if not self.training else None
         return self._run(x, mask, fused_pconv_eval, upsample2x_bilinear, fused_decoder_tail,
-                         planes)
+                         self.packed_weights())
 
     def forward_plain(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         """The same forward through the kernels' plain versions, on any device,

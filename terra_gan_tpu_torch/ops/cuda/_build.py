@@ -109,11 +109,11 @@ def _compile(nvcc: str, srcs, so: Path) -> str:
 
 def _bind(lib: ctypes.CDLL) -> None:
     lib.tg_pconv_eval_f32.restype = _I
-    lib.tg_pconv_eval_f32.argtypes = [_P] * 9 + [_I] * 9 + [_P]
+    lib.tg_pconv_eval_f32.argtypes = [_P] * 9 + [_I] * 10 + [_P]
     lib.tg_pconv_eval_mma_f32.restype = _I
-    lib.tg_pconv_eval_mma_f32.argtypes = [_P] * 12 + [_I] * 11 + [_P]
+    lib.tg_pconv_eval_mma_f32.argtypes = [_P] * 12 + [_I] * 12 + [_P]
     lib.tg_pconv_eval_c1_f32.restype = _I
-    lib.tg_pconv_eval_c1_f32.argtypes = [_P] * 9 + [_I] * 8 + [_P]
+    lib.tg_pconv_eval_c1_f32.argtypes = [_P] * 9 + [_I] * 9 + [_P]
     lib.tg_pconv_c1_info.restype = _I
     lib.tg_pconv_c1_info.argtypes = [_P] * 5
     lib.tg_pconv_mma_smem_bytes.restype = _I

@@ -1,4 +1,4 @@
-"""K2: the fused eval-mode PConv stage, CUDA kernel and its plain version.
+"""K2: the fused PConv stage, CUDA kernel and its plain version, in eval and train mode.
 
 Replaces terra_gan_tpu/ops/pallas/pconv_kernel.py :: fused_pconv_eval
 (``_kernel_s1``, ``_kernel_s2``, ``_epilogue``, and the tall-stage strip
@@ -37,12 +37,26 @@ place. The plain version is ``ops.pconv.partial_conv2d_split`` (F.conv2d
 on x*m, box-sum, renorm) followed by the folded BatchNorm and ReLU.
 
 ``fused_pconv_eval`` takes the plain version only for tensors on the
-CPU; for CUDA tensors it launches the kernel or raises. The kernel has
-no backward, as in the JAX package, where a train-mode stage is the
-plain conv and BatchNorm: on a CUDA tensor under autograd it raises
-rather than return a result cut from the graph. ``fused_pconv_eval.
-launches`` counts stages (calls), ``fused_pconv_eval.variants`` the CUDA
-launches of each variant, ``pack_pconv_weights.launches`` the packs.
+CPU; for CUDA tensors it launches the kernel or raises. It records no
+gradient: on a CUDA tensor under autograd it raises rather than return
+a result cut from the graph. ``fused_pconv_eval.launches`` counts stages
+(calls), ``fused_pconv_eval.variants`` the CUDA launches of each
+variant, ``pack_pconv_weights.launches`` the packs.
+
+The train-mode stage is ``fused_pconv_train`` (``PConvTrain``): the same
+kernel and plan with an epilogue that writes the partial conv alone,
+
+    out = (conv(concat(x, x_skip) * m) + bias) * ratio,  new_mask
+
+as ``ops.pconv.partial_conv2d_split`` returns them (its plain version),
+for ``nn.BatchNorm2d`` on the batch statistics and the ReLU to follow,
+and a backward that is the adjoint autograd takes through the plain
+version: cuDNN's dgrad and wgrad. The JAX package has no train-mode
+kernel (its train stage is the plain conv); the port runs one because
+cuDNN's heuristic forward, with its search off, takes an FFT path of
+tens of thousands of small GEMMs a step at some batches, whose launches
+the host cannot keep up with. ``fused_pconv_train.launches`` and
+``.variants`` count its stages and launches as the eval counters do.
 """
 
 from __future__ import annotations
@@ -53,8 +67,9 @@ import math
 from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
+from torch.autograd.function import once_differentiable
 
-from ..pconv import partial_conv2d_split
+from ..pconv import partial_conv2d_split, renorm_ratio
 from ._build import check, load_library
 
 # the MMA kernel's K-chunk (channels of one tap) and its two tiles (BM, BN)
@@ -233,6 +248,23 @@ def fold_batch_norm(
     return a, bias - running_mean * a
 
 
+def fused_pconv_train_plain(
+    x: torch.Tensor,
+    mask: torch.Tensor,
+    weight: torch.Tensor,
+    bias: torch.Tensor,
+    stride: int,
+    padding: int,
+    x_skip: Optional[torch.Tensor] = None,
+    packed: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The train-mode stage's partial conv in plain PyTorch, under autograd;
+    same arguments as ``fused_pconv_train`` (``packed`` is not read)."""
+    parts = (x,) if x_skip is None else (x, x_skip)
+    kernel = weight.permute(2, 3, 1, 0)  # HWIO, the layout of ops.pconv
+    return partial_conv2d_split(parts, mask, kernel, bias, stride, padding)
+
+
 def fused_pconv_eval_plain(
     x: torch.Tensor,
     mask: torch.Tensor,
@@ -247,13 +279,11 @@ def fused_pconv_eval_plain(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The stage in plain PyTorch; same arguments as ``fused_pconv_eval``
     (``packed`` is the kernel's and is not read)."""
-    parts = (x,) if x_skip is None else (x, x_skip)
-    kernel = weight.permute(2, 3, 1, 0)  # HWIO, the layout of ops.pconv
-    out, new_mask = partial_conv2d_split(parts, mask, kernel, bias, stride, padding)
+    out, new_mask = fused_pconv_train_plain(x, mask, weight, bias, stride, padding, x_skip)
     return torch.relu(out * bn_a + bn_b), new_mask
 
 
-def _check_cuda_args(x, x_skip, mask, weight, vecs, stride, padding):
+def _check_cuda_args(entry, x, x_skip, mask, weight, vecs, stride, padding):
     """Raise on what the kernel does not take; it reads raw pointers."""
     b, h, w, ca = x.shape
     cb = 0 if x_skip is None else x_skip.shape[-1]
@@ -263,29 +293,29 @@ def _check_cuda_args(x, x_skip, mask, weight, vecs, stride, padding):
     if x_skip is not None:
         expect.append(("x_skip", x_skip, (b, h, w, cb)))
     expect += [(name, v, (cout,)) for name, v in zip(("bias", "bn_a", "bn_b"), vecs)]
-    _check_tensors(x.device, expect)
+    _check_tensors(entry, x.device, expect)
     if not (1 <= k <= 7 and stride in (1, 2) and 0 <= padding and cout % 4 == 0):
         raise ValueError(
-            f"fused_pconv_eval: k={k} stride={stride} padding={padding} cout={cout} "
+            f"{entry}: k={k} stride={stride} padding={padding} cout={cout} "
             "outside the kernel (k <= 7, stride 1 or 2, cout % 4 == 0)"
         )
     if b > 65535:
-        raise ValueError(f"fused_pconv_eval: batch {b} above 65535")
+        raise ValueError(f"{entry}: batch {b} above 65535")
     if b * h * w >= 2**31:
-        raise ValueError(f"fused_pconv_eval: {b}x{h}x{w} pixels index past 2^31")
+        raise ValueError(f"{entry}: {b}x{h}x{w} pixels index past 2^31")
 
 
-def _check_tensors(device, expect):
+def _check_tensors(entry, device, expect):
     for name, t, shape in expect:
         if tuple(t.shape) != shape:
-            raise ValueError(f"fused_pconv_eval: {name} has shape {tuple(t.shape)}, needs {shape}")
+            raise ValueError(f"{entry}: {name} has shape {tuple(t.shape)}, needs {shape}")
         if t.device != device or t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError(
-                f"fused_pconv_eval: {name} must be a contiguous float32 tensor on "
+                f"{entry}: {name} must be a contiguous float32 tensor on "
                 f"{device}, got {t.dtype} on {t.device}, contiguous={t.is_contiguous()}"
             )
         if t.data_ptr() % 16:
-            raise ValueError(f"fused_pconv_eval: {name} is not 16-byte aligned")
+            raise ValueError(f"{entry}: {name} is not 16-byte aligned")
 
 
 @functools.lru_cache(maxsize=None)
@@ -327,20 +357,34 @@ def fused_pconv_eval(
             "fused_pconv_eval: the kernel records no gradient; run the eval "
             "forward under torch.no_grad() or the stage in train mode"
         )
-    _check_cuda_args(x, x_skip, mask, weight, (bias, bn_a, bn_b), stride, padding)
+    return _launch_stage(fused_pconv_eval, x, mask, weight, bias, stride, padding, (bn_a, bn_b),
+                         x_skip, packed)
+
+
+def _launch_stage(wrapper, x, mask, weight, bias, stride, padding, bn, x_skip, packed):
+    """One stage on K2 into new tensors: the eval forward's epilogue with
+    ``bn`` = (bn_a, bn_b), the train forward's with None. Counts the stage
+    in ``wrapper.launches`` and its CUDA launches in ``wrapper.variants``."""
+    entry = wrapper.__name__
+    train = bn is None
+    bn_a, bn_b = (None, None) if train else bn
+    _check_cuda_args(entry, x, x_skip, mask, weight, (bias,) if train else (bias, bn_a, bn_b),
+                     stride, padding)
     b, h, w, ca = x.shape
     cb = 0 if x_skip is None else x_skip.shape[-1]
     cout, k = weight.shape[0], weight.shape[-1]
     oh = (h + 2 * padding - k) // stride + 1
     ow = (w + 2 * padding - k) // stride + 1
     if oh < 1 or ow < 1 or b * oh * ow >= 2**31:
-        raise ValueError(f"fused_pconv_eval: output {b}x{oh}x{ow} empty or past 2^31 pixels")
+        raise ValueError(f"{entry}: output {b}x{oh}x{ow} empty or past 2^31 pixels")
     plan = plan_stage(b * oh * ow, cout, ca, cb, k, sm_count(x.device))
     out = torch.empty((b, oh, ow, cout), dtype=torch.float32, device=x.device)
     new_mask = torch.empty((b, oh, ow, 1), dtype=torch.float32, device=x.device)
     skip_ptr = None if x_skip is None else x_skip.data_ptr()
+    a_ptr = None if train else bn_a.data_ptr()
+    b_ptr = None if train else bn_b.data_ptr()
     lib = load_library()
-    variants = fused_pconv_eval.variants
+    variants = wrapper.variants
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         if plan.variant == "simt":
@@ -348,31 +392,31 @@ def fused_pconv_eval(
             kernel = weight.permute(2, 3, 1, 0).contiguous()
             err = lib.tg_pconv_eval_f32(
                 x.data_ptr(), skip_ptr, mask.data_ptr(), kernel.data_ptr(), bias.data_ptr(),
-                bn_a.data_ptr(), bn_b.data_ptr(), out.data_ptr(), new_mask.data_ptr(),
-                b, h, w, ca, cb, cout, k, stride, padding, stream,
+                a_ptr, b_ptr, out.data_ptr(), new_mask.data_ptr(),
+                b, h, w, ca, cb, cout, k, stride, padding, train, stream,
             )
-            check(err, "fused_pconv_eval")
+            check(err, entry)
             variants["simt"] += 1
         elif plan.variant == "mma_c1":
             if packed is None:
                 packed = pack_pconv_weights([weight])[0]
             w_hi, w_lo = packed
-            _check_tensors(x.device, [(name, p, (cout, k, k, 1))
-                                      for name, p in (("w_hi", w_hi), ("w_lo", w_lo))])
+            _check_tensors(entry, x.device, [(name, p, (cout, k, k, 1))
+                                             for name, p in (("w_hi", w_hi), ("w_lo", w_lo))])
             c1 = plan_c1(b, oh, ow, sm_count(x.device))
             err = lib.tg_pconv_eval_c1_f32(
                 x.data_ptr(), mask.data_ptr(), w_hi.data_ptr(), w_lo.data_ptr(),
-                bias.data_ptr(), bn_a.data_ptr(), bn_b.data_ptr(), out.data_ptr(),
-                new_mask.data_ptr(), b, h, w, cout, k, stride, padding, c1.grid, stream,
+                bias.data_ptr(), a_ptr, b_ptr, out.data_ptr(),
+                new_mask.data_ptr(), b, h, w, cout, k, stride, padding, c1.grid, train, stream,
             )
-            check(err, "fused_pconv_eval")
+            check(err, entry)
             variants["mma_c1"] += 1
         else:
             if packed is None:
                 packed = pack_pconv_weights([weight])[0]
             w_hi, w_lo = packed
-            _check_tensors(x.device, [(name, p, (cout, k, k, ca + cb))
-                                      for name, p in (("w_hi", w_hi), ("w_lo", w_lo))])
+            _check_tensors(entry, x.device, [(name, p, (cout, k, k, ca + cb))
+                                             for name, p in (("w_hi", w_hi), ("w_lo", w_lo))])
             ws = ratio_ws = None
             if plan.splits > 1:
                 ws = torch.empty((plan.splits, b * oh * ow, cout), dtype=torch.float32,
@@ -380,20 +424,108 @@ def fused_pconv_eval(
                 ratio_ws = torch.empty(b * oh * ow, dtype=torch.float32, device=x.device)
             err = lib.tg_pconv_eval_mma_f32(
                 x.data_ptr(), skip_ptr, mask.data_ptr(), w_hi.data_ptr(), w_lo.data_ptr(),
-                bias.data_ptr(), bn_a.data_ptr(), bn_b.data_ptr(), out.data_ptr(),
+                bias.data_ptr(), a_ptr, b_ptr, out.data_ptr(),
                 new_mask.data_ptr(), None if ws is None else ws.data_ptr(),
                 None if ratio_ws is None else ratio_ws.data_ptr(),
-                b, h, w, ca, cb, cout, k, stride, padding, plan.tile, plan.splits, stream,
+                b, h, w, ca, cb, cout, k, stride, padding, plan.tile, plan.splits, train, stream,
             )
-            check(err, "fused_pconv_eval")
+            check(err, entry)
             if plan.splits > 1:
                 variants["mma_split"] += 1
                 variants["split_reduce"] += 1
             else:
                 variants["mma"] += 1
-    fused_pconv_eval.launches += 1
+    wrapper.launches += 1
     return out, new_mask
 
 
 fused_pconv_eval.launches = 0
 fused_pconv_eval.variants = dict.fromkeys(VARIANTS, 0)
+
+
+class PConvTrain(torch.autograd.Function):
+    """A train-mode PConv stage: (out, new_mask) as ``partial_conv2d_split``
+    returns them, with the adjoint autograd takes through that as its
+    backward.
+
+    Forward: K2's train variant on a card (counted in ``fused_pconv_train``),
+    the plain version on the CPU. Backward, with g = grad_out * ratio (the
+    ratio is data: no gradient flows through it): grad_bias = the sum of g,
+    and for each part p of the implicit concat ``convolution_backward``
+    (cuDNN's dgrad and wgrad on a card) of g against p * m and the part's
+    slice of the weight, then grad_p = grad_(p * m) * m. It saves the parts
+    and the mask where autograd saved each p * m: the same bytes or fewer,
+    since a skip and an encoder stage's input are held for their ReLU's
+    backward anyway. p * m is formed again for the wgrad and freed before
+    the dgrad, and grad_p is written over grad_(p * m).
+    """
+
+    @staticmethod
+    def forward(ctx, x, x_skip, mask, weight, bias, stride, padding, packed):
+        if x.device.type == "cpu":
+            out, new_mask = fused_pconv_train_plain(x, mask, weight, bias, stride, padding, x_skip)
+        else:
+            out, new_mask = _launch_stage(fused_pconv_train, x, mask, weight, bias, stride,
+                                          padding, None, x_skip, packed)
+        ctx.save_for_backward(x, x_skip, mask, weight)
+        ctx.stride, ctx.padding = stride, padding
+        ctx.mark_non_differentiable(new_mask)
+        ctx.set_materialize_grads(False)  # new_mask's gradient (None) is never built
+        return out, new_mask
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, grad_out, _):
+        if grad_out is None:  # an undefined gradient (gradcheck passes one)
+            return (None,) * 8
+        x, x_skip, mask, weight = ctx.saved_tensors
+        need_x, need_skip, _, need_w, need_b = ctx.needs_input_grad[:5]
+        stride, padding, k = ctx.stride, ctx.padding, weight.shape[-1]
+        ratio, _ = renorm_ratio(mask, k, k, stride, padding)
+        g = grad_out * ratio
+        g_nchw, m = g.permute(0, 3, 1, 2), mask.permute(0, 3, 1, 2)
+        conv = ([stride] * 2, [padding] * 2, [1, 1], False, [0, 0], 1)
+        grads, grad_ws, offset = [], [], 0
+        for part, need in ((x, need_x), (x_skip, need_skip)):
+            if part is None:
+                grads.append(None)
+                continue
+            w = weight[:, offset : offset + part.shape[-1]]
+            offset += part.shape[-1]
+            p_nchw = part.permute(0, 3, 1, 2)
+            if need_w:  # wgrad, then x*m is freed
+                grad_ws.append(torch.ops.aten.convolution_backward(
+                    g_nchw, p_nchw * m, w, None, *conv, [False, True, False])[1])
+            grad_p = None
+            if need:  # dgrad reads its input's shape and layout alone: the part's view will do
+                grad_p = torch.ops.aten.convolution_backward(
+                    g_nchw, p_nchw, w, None, *conv, [True, False, False])[0]
+                grad_p = grad_p.mul_(m).permute(0, 2, 3, 1)
+            grads.append(grad_p)
+        grad_w = (grad_ws[0] if len(grad_ws) == 1 else torch.cat(grad_ws, 1)) if need_w else None
+        grad_b = g.sum((0, 1, 2)) if need_b else None
+        return grads[0], grads[1], None, grad_w, grad_b, None, None, None
+
+
+def fused_pconv_train(
+    x: torch.Tensor,
+    mask: torch.Tensor,
+    weight: torch.Tensor,
+    bias: torch.Tensor,
+    stride: int,
+    padding: int,
+    x_skip: Optional[torch.Tensor] = None,
+    packed: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One train-mode PConv stage, NHWC, before its BatchNorm and ReLU:
+    ``partial_conv2d_split``'s (out, new_mask) of the implicit concat
+    (x, x_skip) under autograd (``PConvTrain``). Arguments as
+    ``fused_pconv_eval``'s without the folded BatchNorm."""
+    return PConvTrain.apply(x, x_skip, mask, weight, bias, stride, padding, packed)
+
+
+fused_pconv_train.launches = 0
+fused_pconv_train.variants = dict.fromkeys(VARIANTS, 0)
+# the train-mode stage of each eval stage, which a train-mode PConv2d takes
+fused_pconv_eval.train = fused_pconv_train
+fused_pconv_eval_plain.train = fused_pconv_train_plain

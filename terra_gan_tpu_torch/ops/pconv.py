@@ -47,12 +47,18 @@ def mask_window_sum(
     return _nhwc(s)
 
 
-def _renorm(out, mask, kh, kw, stride, padding, bias):
-    # the ratio is data-only: no gradient flows through it (stop_gradient
-    # in the JAX package)
+def renorm_ratio(
+    mask: torch.Tensor, kh: int, kw: int, stride: int, padding: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(ratio, sum_win(m) > 0), both [B,H',W',1]. The ratio is data only:
+    no gradient flows through it (stop_gradient in the JAX package)."""
     msum = mask_window_sum(mask, kh, kw, stride, padding).detach()
     valid = msum > 0
-    ratio = torch.where(valid, (kh * kw) / (msum + 1e-8), torch.zeros_like(msum))
+    return torch.where(valid, (kh * kw) / (msum + 1e-8), torch.zeros_like(msum)), valid
+
+
+def _renorm(out, mask, kh, kw, stride, padding, bias):
+    ratio, valid = renorm_ratio(mask, kh, kw, stride, padding)
     return (out + bias) * ratio, valid.to(mask.dtype)
 
 

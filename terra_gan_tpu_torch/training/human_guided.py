@@ -12,9 +12,10 @@ of the finite losses is above 0. Every epoch writes
 ``generator_epoch_{e}.pth``, and ``best_model.pth`` when
 ``0 < average < best``.
 
-On a card each step launches K1 forward 7 times in the generator's
-forward and K1 backward 7 times in its backward; the convolutions are
-cuDNN's. Under a profiler a step is the range ``tg.hg_step``, holding in
+On a card each step's generator forward packs K2's weight planes once,
+runs its 14 PConv stages on K2's train variant and launches K1 forward 7
+times; its backward launches K1 backward 7 times, and its convolutions'
+dgrad and wgrad are cuDNN's. Under a profiler a step is the range ``tg.hg_step``, holding in
 order ``tg.g_forward``, ``tg.loss`` (``human_guided_loss`` with VGG),
 ``tg.g_backward`` and ``tg.g_adam`` (utils/trace.py).
 

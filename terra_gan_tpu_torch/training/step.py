@@ -17,8 +17,10 @@ each for G and D:
   * G's backward also fills D's ``.grad``; D's gradients are zeroed
     before the D backward, as the reference does.
 
-On a card the G forward launches K1 forward 7 times and its backward K1
-backward 7 times; K2 is the eval stage and is not launched in training.
+On a card the G forward packs K2's weight planes once and runs its 14
+PConv stages on K2's train variant (``fused_pconv_train``), and launches
+K1 forward 7 times; its backward launches K1 backward 7 times, and its
+convolutions' dgrad and wgrad are cuDNN's.
 Metrics are 0-dim tensors on the device, named as the reference's
 batch metrics (train.py:246-251); reading them synchronises.
 

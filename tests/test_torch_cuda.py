@@ -21,11 +21,14 @@ from terra_gan_tpu_torch.ops.cuda.pconv_kernel import (
     fold_batch_norm,
     fused_pconv_eval,
     fused_pconv_eval_plain,
+    fused_pconv_train,
+    fused_pconv_train_plain,
     pack_pconv_weight,
     pack_pconv_weights,
     plan_stage,
     sm_count,
 )
+from terra_gan_tpu_torch.models.generator import STAGES, PConvUNet
 from terra_gan_tpu_torch.ops.pconv import mask_window_sum
 from terra_gan_tpu_torch.ops.cuda.upsample_kernel import (
     Upsample2x,
@@ -260,8 +263,8 @@ C1_CASES = ([(b, hw, 7, 2) for b in (1, 2, 8) for hw in (512, 511, 64, 13)]
             + [(2, hw, k, s) for hw in (64, 13) for k in range(1, 8) for s in (1, 2)])
 
 
-def k2_used(before: dict) -> dict:
-    return {v: n - before[v] for v, n in fused_pconv_eval.variants.items()}
+def k2_used(before: dict, wrapper=fused_pconv_eval) -> dict:
+    return {v: n - before[v] for v, n in wrapper.variants.items()}
 
 
 @pytest.mark.parametrize("b,hw,k,s", C1_CASES, ids=[f"b{b}-{hw}-k{k}-s{s}" for b, hw, k, s in C1_CASES])
@@ -622,6 +625,78 @@ def test_train_step_kernel_path_matches_plain_path(card):
         for (n, a), b in zip(mod.state_dict().items(), ref.state_dict().values()):
             if a.is_floating_point():
                 assert (a - b).abs().max().item() < 2.2 * lr, n
+
+
+def model_stages(width: int, size: int):
+    """(name, input side, Ca, Cb, stage module) of each PConv stage of a
+    PConvUNet(width) at ``size``^2, in forward order."""
+    model = PConvUNet(width)
+    out = []
+    for name in STAGES:
+        st, n = getattr(model, name), int(name[3:])
+        side = size >> (n - 1)
+        cin = st.input_conv.in_channels
+        # decN's skip is enc(N-1)'s output (the input for dec1): its width
+        cb = 0 if name.startswith("enc") or n == 1 else getattr(model, f"enc{n - 1}").input_conv.out_channels
+        out.append((name, side, cin - cb, cb, st))
+    return out
+
+
+@pytest.mark.parametrize("batch", [5, 16, 32])
+def test_train_stage_matches_plain_at_the_models_stages(card, batch):
+    """K2's train forward against the plain partial conv (NRMSE, new_mask
+    equal) and the gradients through it against autograd's through the
+    plain version, at the 14 stages of the full-width 512^2 model."""
+    g = torch.Generator().manual_seed(batch)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for name, h, ca, cb, st in model_stages(64, 512):
+            x = torch.rand((batch, h, h, ca), generator=g).to(card)
+            xs = torch.rand((batch, h, h, cb), generator=g).to(card) if cb else None
+            m = (torch.rand((batch, h, h, 1), generator=g) > 0.3).float()
+            m[:, h // 4 : h // 2, h // 8 : h // 2] = 0
+            m = m.to(card)
+            conv = st.input_conv
+            w = (torch.randn(conv.weight.shape, generator=g) / math.sqrt(conv.weight[0].numel()))
+            bias = torch.randn(conv.out_channels, generator=g) * 0.1
+            leaves = [t.to(card).requires_grad_(True) for t in (x, xs, w, bias) if t is not None]
+            ref = [t.detach().clone().requires_grad_(True) for t in leaves]
+
+            def run(stage, ts):
+                x_, xs_, w_, b_ = ts if cb else (ts[0], None, *ts[1:])
+                return stage(x_, m, w_, b_, st.stride, st.padding, x_skip=xs_)
+
+            before = fused_pconv_train.launches
+            got, got_m = run(fused_pconv_train, leaves)
+            want, want_m = run(fused_pconv_train_plain, ref)
+            assert fused_pconv_train.launches == before + 1
+            assert nrmse(got.detach().cpu(), want.detach().cpu()) <= NRMSE_TOL, name
+            assert torch.equal(got_m, want_m), name
+            up = torch.randn(got.shape, generator=g).to(card)
+            for a, b in zip(torch.autograd.grad(got, leaves, up), torch.autograd.grad(want, ref, up)):
+                assert (a - b).abs().max().item() <= 1e-6 * b.abs().max().item(), name
+            del got, want, leaves, ref, up
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+
+
+def test_train_forward_runs_every_stage_on_k2(card):
+    model = init_generator(16, torch.Generator().manual_seed(3), card).train()
+    g = torch.Generator().manual_seed(4)
+    x = torch.rand((2, 128, 128, 1), generator=g).to(card)
+    m = (torch.rand((2, 128, 128, 1), generator=g) > 0.3).float().to(card)
+    counters = (fused_pconv_train, fused_pconv_eval, pack_pconv_weights, upsample2x_fwd,
+                fused_decoder_tail)
+    before = [f.launches for f in counters]
+    variants = dict(fused_pconv_train.variants)
+    out = model(x * m, m)
+    out.mean().backward()
+    used = [f.launches - b for f, b in zip(counters, before)]
+    assert used == [14, 0, 1, 7, 0]
+    assert k2_used(variants, fused_pconv_train)["mma_c1"] == 1
+    assert k2_used(variants, fused_pconv_train)["simt"] == 0
+    assert all(p.grad is not None for n, p in model.named_parameters() if p.requires_grad)
 
 
 def tail_args(seed, b, h, w, c, dev, skip=True, xm_mode="rand"):

@@ -341,6 +341,16 @@ def test_per_step_numbers_from_the_counters(ps):
                                  "ready_pct": 75.0, "make_ms": 50.0})
 
 
+def test_per_step_k2_train_counts(ps):
+    tr = _phase_trace(ps, WINDOW + RANGES + KERNELS)
+    got = ps.per_step({"steps": 4, "feed_batches": 0, "k2_train_stages": 56,
+                       "k2_train.mma_c1": 4, "k2_train.mma": 28, "k2_train.mma_split": 24,
+                       "k2_train.split_reduce": 24, "k2_train.simt": 0}, tr)
+    assert got["k2_train_stages"] == 14.0
+    assert got["k2_train_launches"] == {"mma_c1": 1.0, "mma": 7.0, "mma_split": 6.0,
+                                        "split_reduce": 6.0, "simt": 0.0}
+
+
 def test_a_small_hg_cell_under_profile_steps(ps):
     args = argparse.Namespace(workload="gan.hg-b5", seed=2**31 + 5, seconds=1.0, trace=0)
     small = {"config": {"base_width": 8, "discriminator_width": 8, "image_size": 128,
@@ -352,4 +362,5 @@ def test_a_small_hg_cell_under_profile_steps(ps):
     assert all(rep["ranges"][n] == steps for n in CHILDREN["hg"])
     assert rep["counts"]["feed_batches"] == steps
     assert 0 <= rep["counts"]["feed_ready"] <= steps
+    assert rep["per_step"]["k2_train_stages"] == 0  # the plain version on the CPU: no launch
     assert rep["busy_s"] == 0 and rep["idle_by_span"]  # no device here: all idle, labelled
