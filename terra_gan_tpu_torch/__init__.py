@@ -10,7 +10,8 @@ Layout (mirrors the JAX package's names):
   ops/          partial conv and resampling in plain PyTorch; ops/cuda/
                 holds the hand-written kernels (sources in csrc/), each
                 beside its plain version and a launch count
-  models/       PConvUNet generator (eval and train mode), PatchGAN
+  models/       PConvUNet generator (eval and train mode), Big-LaMa's
+                FFC ResNet generator (models/lama.py), PatchGAN
                 discriminator, VGG16 features[:16] for the loss
   losses/       the reference inpainting loss
   training/     train state, the fused G+D step, .pth checkpoints, the

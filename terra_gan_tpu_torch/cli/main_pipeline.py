@@ -10,7 +10,9 @@ The JAX CLI's flags and contracts for the modes the port runs:
   * train (main_pipeline.py:185-361): every zip in data.input_zip_folder
     (sorted) is ingested (``ingest_zip``: DSM PNGs and detector masks),
     its tiles split on the checkerboard, and ONE master
-    generator+discriminator trained across the parent grids in turn. The
+    generator+discriminator trained across the parent grids in turn.
+    The generator is the config's ``model.generator``: the PConv U-Net
+    (the default) or Big-LaMa's FFC ResNet at its published sizes. The
     state starts from the first of preempted.pth, ``--input_model``,
     the master checkpoint, _BASELINE_MODEL/BASELINE_MODEL.pth
     (``resolve_checkpoint``), else a fresh seeded init; a preempted.pth
@@ -22,7 +24,8 @@ The JAX CLI's flags and contracts for the modes the port runs:
     seeded init, tagged ``random:torch-seed0`` (it is not the JAX
     package's ``random:seed0``, which jax.random draws);
   * evaluate (main_pipeline.py:446-556): load the master generator
-    (``--input_model`` or ``<evaluation.checkpoint_dir>/master_checkpoint.pth``),
+    (``--input_model`` or ``<evaluation.checkpoint_dir>/master_checkpoint.pth``,
+    either architecture, by its keys),
     inpaint every test tile of ``--grid`` or of every valid parent grid
     under ``data.processed_dir`` (``inpaint_directory``, whole splits in
     chunks), then colorize them; exit 0 if any tile was written, else 1;
@@ -150,9 +153,10 @@ def _load_vgg(cfg, device):
 
 
 def _init_master_state(cfg, input_model: Optional[str], device):
-    """The master state (full width) and, for a preempted.pth, its resume
-    record: the first checkpoint of the load chain, else a fresh init
-    (torch's default conv init from seed 0, fresh BatchNorm)."""
+    """The master state (full width, the config's ``model.generator``) and,
+    for a preempted.pth, its resume record: the first checkpoint of the
+    load chain, else a fresh init (torch's default conv init from seed 0,
+    fresh BatchNorm)."""
     import torch
 
     from ..training.checkpoint import import_pth, resolve_checkpoint
@@ -160,7 +164,7 @@ def _init_master_state(cfg, input_model: Optional[str], device):
     from ..utils.weights import init_discriminator, init_generator
 
     gen = torch.Generator().manual_seed(0)
-    G = init_generator(64, gen, device)
+    G = init_generator(64, gen, device, arch=cfg.model.generator)
     for mod in G.modules():
         if isinstance(mod, torch.nn.BatchNorm2d):
             mod.reset_parameters()
@@ -338,7 +342,7 @@ def run_human_guided_training_mode(
     )
     from ..training.checkpoint import save_pth
     from ..training.human_guided import HumanGuidedTrainer
-    from ..utils.weights import load_generator
+    from ..utils.weights import generator_architecture, load_generator
 
     ckpt_dir = Path(cfg.evaluation.checkpoint_dir) / "human_guided"
     hg_preempted = ckpt_dir / "preempted.pth"
@@ -388,8 +392,10 @@ def run_human_guided_training_mode(
     result = HumanGuidedTrainer(cfg).train(G, dataset, checkpoint_dir=ckpt_dir, vgg=vgg)
 
     # the generator-only master with its provenance (main_pipeline.py:705-737)
+    generator = G.state_dict()
     ckpt = {
-        "generator_state_dict": G.state_dict(),
+        "generator_state_dict": generator,
+        "architecture": generator_architecture(generator),
         "human_guided": True,
         "source_model": str(source_model),
         "resumed_from_preemption": resumed_from_preemption,

@@ -12,6 +12,12 @@ the CLI refuses the ones whose absence would change a result
 (``evaluation.quant``, and ``training.compute_dtype`` when it asks for
 bf16).
 
+The port adds one section of its own, ``model``: ``model.generator``
+picks the generator architecture that ``--mode train`` builds,
+"pconv_unet" (the default, the reference's) or "big_lama" (Big-LaMa's
+FFC ResNet, ``models/lama.py``); a checkpoint's own keys say which one
+it holds wherever one is loaded.
+
 ``LoopConfig`` is the flat view of ``TrainingConfig`` that the port's
 training loop reads (``LoopConfig.from_training``).
 """
@@ -30,6 +36,8 @@ logger = logging.getLogger(__name__)
 
 # the JAX package's quantised evaluation modes (terra_gan_tpu/ops/quant.py:251)
 QUANT_MODES = ("w8a8", "w8a8_resident", "w8a8_resident_full")
+# the generator architectures ``model.generator`` names
+GENERATORS = ("pconv_unet", "big_lama")
 
 
 def _get(d: Optional[Dict], *keys, default=None):
@@ -68,6 +76,7 @@ _KNOWN_KEYS = {
         "iou_threshold", "precision_threshold", "recall_threshold",
         "boundary_size",
     },
+    "model": {"generator"},
 }
 
 
@@ -271,6 +280,22 @@ class EvaluationConfig:
 
 
 @dataclass
+class ModelConfig:
+    """The port's own section: which generator ``--mode train`` builds."""
+
+    generator: str = "pconv_unet"
+
+    @classmethod
+    def from_dict(cls, d):
+        generator = _get(d, "generator", default="pconv_unet")
+        if generator not in GENERATORS:
+            raise ValueError(
+                f"model.generator must be one of {GENERATORS}, got {generator!r}"
+            )
+        return cls(generator=generator)
+
+
+@dataclass
 class PortalConfig:
     base_url: str = ""
     api_key: str = ""
@@ -361,6 +386,7 @@ class Config:
     portal: PortalConfig = field(default_factory=PortalConfig)
     experiment_tracking: TrackingConfig = field(default_factory=TrackingConfig)
     data: DataConfig = field(default_factory=DataConfig)
+    model: ModelConfig = field(default_factory=ModelConfig)
     raw: Dict[str, Any] = field(default_factory=dict)
 
     @classmethod
@@ -375,6 +401,7 @@ class Config:
                 _get(d, "experiment_tracking", default={})
             ),
             data=DataConfig.from_dict(_get(d, "data", default={})),
+            model=ModelConfig.from_dict(_get(d, "model", default={})),
             raw=d,
         )
 

@@ -2,6 +2,7 @@
 
 from .discriminator import Discriminator
 from .generator import PConv2d, PConvUNet
+from .lama import FFCResNetGenerator
 from .vgg import VGG16Features
 
-__all__ = ["Discriminator", "PConv2d", "PConvUNet", "VGG16Features"]
+__all__ = ["Discriminator", "FFCResNetGenerator", "PConv2d", "PConvUNet", "VGG16Features"]

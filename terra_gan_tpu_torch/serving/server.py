@@ -1,6 +1,7 @@
 """Inference serving on the card: an HTTP service with dynamic micro-batching.
 
-The port of terra_gan_tpu/serving/server.py, over the port's PConvUNet:
+The port of terra_gan_tpu/serving/server.py, over either of the port's
+generators (a checkpoint's keys say which):
 
   * POST /inpaint        — body {"image": <b64 PNG>, "mask": <b64 PNG>}
                            -> {"inpainted": <b64 PNG>} at the
@@ -155,8 +156,9 @@ class MicroBatcher:
 class InpaintService:
     """Model, batcher and codecs behind the HTTP handler.
 
-    The generator comes from a reference-layout ``.pth`` (``checkpoint``)
-    or, without one, from random weights seeded with ``SEED``
+    The generator comes from a reference-layout ``.pth`` (``checkpoint``;
+    a PConvUNet or an FFCResNetGenerator, by its keys) or, without one,
+    from a PConvUNet's random weights seeded with ``SEED``
     (``init_generator``). It runs on ``device``, the card unless the
     caller asks for the CPU, in eval mode, fp32.
     """

@@ -4,12 +4,14 @@ A master checkpoint is the dict the reference writes (train.py:318-330,
 main_pipeline.py:386-397): ``epoch``, ``generator_state_dict``,
 ``discriminator_state_dict``, ``optimizer_G_state_dict``,
 ``optimizer_D_state_dict`` and ``config``, plus extras such as the
-losses. The Adam states are torch's own, numbered by ``.parameters()``
-order: 72 entries for the generator (its 14 frozen mask convs have none
-of their own state) and 16 for the discriminator, as the reference's and
-the JAX package's ``export_pth`` / ``import_pth``, so a checkpoint
-written by any of the three resumes in the others. The JAX package's
-orbax format is not ported.
+losses, and ``architecture``, the generator's ("pconv_unet" or
+"big_lama", ``utils.weights.generator_architecture``). The Adam states
+are torch's own, numbered by ``.parameters()`` order: 72 entries for the
+generator (its 14 frozen mask convs have none of their own state) and 16
+for the discriminator, as the reference's and the JAX package's
+``export_pth`` / ``import_pth``, so a checkpoint written by any of the
+three resumes in the others. The JAX package's orbax format is not
+ported.
 
 Load priority chain (main_pipeline.py:227-245, ``resolve_checkpoint``):
 a ``preempted.pth`` left by an interrupted run, then an explicit
@@ -27,6 +29,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from ..utils.weights import generator_architecture
 from .state import GANTrainState
 
 logger = logging.getLogger(__name__)
@@ -60,9 +63,11 @@ def export_pth(
     extra: Optional[Dict] = None,
 ) -> None:
     """Write a reference-layout master checkpoint; atomic (temporary file, then rename)."""
+    generator = state.generator.state_dict()
     ckpt: Dict[str, Any] = {
         "epoch": epoch,
-        "generator_state_dict": state.generator.state_dict(),
+        "architecture": generator_architecture(generator),
+        "generator_state_dict": generator,
         "discriminator_state_dict": state.discriminator.state_dict(),
         "optimizer_G_state_dict": state.g_opt.state_dict(),
         "optimizer_D_state_dict": state.d_opt.state_dict(),

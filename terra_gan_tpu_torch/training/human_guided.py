@@ -1,9 +1,10 @@
 """Human-guided fine-tuning (counterpart of terra_gan_tpu/training/human_guided.py;
 reference: mvp_gan/src/training/human_guided_trainer.py:44-262).
 
-A generator-only fine-tune (no discriminator) on matched human
-annotations: the train-mode forward on ``real * mask``, HumanGuidedLoss
-(the perceptual term on a frozen VGG's features[:16]), and Adam at
+A generator-only fine-tune (no discriminator) of either generator
+(PConvUNet or FFCResNetGenerator) on matched human annotations: the
+train-mode forward on ``real * mask``, HumanGuidedLoss (the perceptual
+term on a frozen VGG's features[:16]), and Adam at
 ``training.modes.human_guided.learning_rate``. The loader keeps the
 partial last batch (the reference's DataLoader default). NaN or Inf
 batch losses are left out of the epoch average (the reference's guard at
@@ -39,7 +40,6 @@ import torch
 from ..config import Config
 from ..data.dataset import BatchLoader
 from ..losses import HumanGuidedLossConfig, InpaintingLossConfig, human_guided_loss
-from ..models.generator import PConvUNet
 from ..models.vgg import VGG16Features
 from ..utils.trace import span
 from .checkpoint import save_pth
@@ -79,7 +79,7 @@ class HumanGuidedTrainer:
         self.loss_config = hg_loss_config(config)
 
     def make_step(
-        self, generator: PConvUNet, opt: torch.optim.Optimizer
+        self, generator: torch.nn.Module, opt: torch.optim.Optimizer
     ) -> Callable[..., Tuple[torch.Tensor, Dict[str, torch.Tensor]]]:
         """step(batch, vgg) -> (loss, components): one forward, backward and
         Adam update of ``generator`` in place; batch = {'image', 'mask',
@@ -104,13 +104,13 @@ class HumanGuidedTrainer:
 
         return step
 
-    def _checkpoint(self, generator: PConvUNet, epoch: int, **extra) -> Dict[str, Any]:
+    def _checkpoint(self, generator: torch.nn.Module, epoch: int, **extra) -> Dict[str, Any]:
         return {"epoch": epoch, "model_state_dict": generator.state_dict(), **extra,
                 "config": self.config.raw}
 
     def train(
         self,
-        generator: PConvUNet,
+        generator: torch.nn.Module,
         dataset,
         num_epochs: Optional[int] = None,
         checkpoint_dir: str | Path = "checkpoints_hg",

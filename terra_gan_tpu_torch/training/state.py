@@ -14,9 +14,10 @@ from dataclasses import dataclass
 
 import torch
 
+from torch import nn
+
 from ..config import LoopConfig
 from ..models.discriminator import Discriminator
-from ..models.generator import PConvUNet
 
 
 def adam(params, lr: float) -> torch.optim.Adam:
@@ -26,7 +27,7 @@ def adam(params, lr: float) -> torch.optim.Adam:
 
 @dataclass
 class GANTrainState:
-    generator: PConvUNet
+    generator: nn.Module  # PConvUNet or FFCResNetGenerator
     discriminator: Discriminator
     g_opt: torch.optim.Adam
     d_opt: torch.optim.Adam
@@ -35,7 +36,7 @@ class GANTrainState:
     @classmethod
     def create(
         cls,
-        generator: PConvUNet,
+        generator: nn.Module,
         discriminator: Discriminator,
         lr: float = LoopConfig.learning_rate,
     ) -> "GANTrainState":

@@ -1,5 +1,10 @@
 """Weights: from the JAX package, from a .pth, or from a seed.
 
+Two generator architectures (``GENERATORS``, the config's
+``model.generator``): the PConv U-Net ("pconv_unet", the default) and
+Big-LaMa's FFC ResNet ("big_lama", ``models/lama.py``). A state dict
+says which it is by its keys, and a LaMa one its sizes by its shapes.
+
 Generators come in eval mode, discriminators in train mode (the mode
 the reference always runs them in); state dicts carry the reference's
 torch keys and load with ``strict=True``. Conversion from the JAX
@@ -21,8 +26,10 @@ from typing import Any, Mapping, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..config import GENERATORS
 from ..models.discriminator import Discriminator
 from ..models.generator import PConvUNet
+from ..models.lama import BIG_LAMA, FFCResNetGenerator, is_lama_state, sizes_from_state
 from ..models.vgg import (
     CONV_CHANNELS,
     VGG16Features,
@@ -47,13 +54,19 @@ def generator_from_jax_variables(
     return _load_state(PConvUNet(base_width), sd, device).eval()
 
 
-def load_generator(path: str | Path, device="cuda") -> PConvUNet:
+def generator_architecture(state: Mapping[str, Any]) -> str:
+    """The ``GENERATORS`` name of a generator state dict, by its keys."""
+    return "big_lama" if is_lama_state(state) else "pconv_unet"
+
+
+def load_generator(path: str | Path, device="cuda") -> torch.nn.Module:
     """A generator from a reference-layout .pth.
 
     Accepts a master dict (``generator_state_dict``), a human-guided
     trainer dict (``model_state_dict``) or a raw state dict, as the JAX
-    package's ``load_generator_variables`` does. The width comes from
-    ``enc1.input_conv.weight``.
+    package's ``load_generator_variables`` does. A PConvUNet's width
+    comes from ``enc1.input_conv.weight``; a LaMa state dict (LaMa's
+    ``model.*`` keys) gives an FFCResNetGenerator of its sizes.
     """
     obj = torch.load(path, map_location="cpu", weights_only=True)
     if isinstance(obj, dict) and "generator_state_dict" in obj:
@@ -62,26 +75,35 @@ def load_generator(path: str | Path, device="cuda") -> PConvUNet:
         sd = obj["model_state_dict"]
     else:
         sd = obj
+    if is_lama_state(sd):
+        return _load_state(FFCResNetGenerator(**sizes_from_state(sd)), sd, device).eval()
     width = int(sd["enc1.input_conv.weight"].shape[0])
     return _load_state(PConvUNet(width), sd, device).eval()
 
 
 def init_generator(
-    base_width: int, generator: torch.Generator, device="cuda"
-) -> PConvUNet:
-    """A PConvUNet with random weights drawn from ``generator`` (a CPU generator).
+    base_width: int, generator: torch.Generator, device="cuda", arch: str = "pconv_unet"
+) -> torch.nn.Module:
+    """A generator with random weights drawn from ``generator`` (a CPU generator).
 
-    Convolutions get torch's default init, U(+-1/sqrt(fan_in)) for weight
-    and bias. The BatchNorm parameters and running statistics are drawn
-    too (gamma in [0.5, 1.5), beta and the mean from N(0, 0.1^2), the
-    variance in [0.5, 1.5)), so that an eval forward exercises the
-    folded BatchNorm. The values depend only on the seed, not on the
-    device.
+    ``arch`` "pconv_unet": a PConvUNet of ``base_width``; "big_lama": an
+    FFCResNetGenerator with ``ngf = base_width`` and Big-LaMa's other
+    sizes (``BIG_LAMA``). Convolutions get torch's default init,
+    U(+-1/sqrt(fan_in)) for weight and bias. The BatchNorm parameters
+    and running statistics are drawn too (gamma in [0.5, 1.5), beta and
+    the mean from N(0, 0.1^2), the variance in [0.5, 1.5)), so that an
+    eval forward exercises the folded BatchNorm. The values depend only
+    on the seed, not on the device.
     """
-    model = PConvUNet(base_width)
+    if arch == "big_lama":
+        model = FFCResNetGenerator(**{**BIG_LAMA, "ngf": base_width})
+    elif arch == "pconv_unet":
+        model = PConvUNet(base_width)
+    else:
+        raise ValueError(f"unknown generator {arch!r}: one of {GENERATORS}")
     with torch.no_grad():
         for mod in model.modules():
-            if isinstance(mod, torch.nn.Conv2d):
+            if isinstance(mod, (torch.nn.Conv2d, torch.nn.ConvTranspose2d)):
                 _torch_default_init(mod, generator)
             elif isinstance(mod, torch.nn.BatchNorm2d):
                 mod.weight.uniform_(0.5, 1.5, generator=generator)
@@ -91,11 +113,13 @@ def init_generator(
     return model.to(resolve_device(device)).eval()
 
 
-def _torch_default_init(conv: torch.nn.Conv2d, generator: torch.Generator) -> None:
-    """torch's default Conv2d init, U(+-1/sqrt(fan_in)) for weight and bias, from ``generator``."""
+def _torch_default_init(conv: torch.nn.Module, generator: torch.Generator) -> None:
+    """torch's default conv init, U(+-1/sqrt(fan_in)) for weight and bias
+    (where it has one), from ``generator``."""
     bound = 1.0 / math.sqrt(conv.weight[0].numel())
     conv.weight.uniform_(-bound, bound, generator=generator)
-    conv.bias.uniform_(-bound, bound, generator=generator)
+    if conv.bias is not None:
+        conv.bias.uniform_(-bound, bound, generator=generator)
 
 
 def discriminator_from_jax_variables(

@@ -56,8 +56,9 @@ from terra_gan_tpu_torch.utils.weights import init_discriminator, init_generator
 HW, GRID, N_TILES, BATCH = 64, "NJ05", 7, 5
 TILES = [f"nj09{50 + i}" for i in range(N_TILES)]
 SECRET = "hg-test-secret"
-HG_KEYS = {"generator_state_dict", "human_guided", "source_model", "resumed_from_preemption",
-           "grid_square", "best_loss", "config", "vgg_weights_provenance"}
+HG_KEYS = {"generator_state_dict", "architecture", "human_guided", "source_model",
+           "resumed_from_preemption", "grid_square", "best_loss", "config",
+           "vgg_weights_provenance"}
 CONFIG = """\
 training:
   loss_weights:
@@ -305,6 +306,7 @@ def test_cli_with_the_portal_end_to_end(tmp_path, monkeypatch, portal_server):
     assert all(torch.equal(v, copy["generator_state_dict"][k])
                for k, v in master["generator_state_dict"].items())
     assert master["human_guided"] is True and master["grid_square"] == GRID
+    assert master["architecture"] == "pconv_unet"
     assert master["source_model"] == str(Path("ckpts/master_checkpoint.pth"))
     assert master["resumed_from_preemption"] is False
     assert master["vgg_weights_provenance"] == main_pipeline.VGG_RANDOM_TAG
