@@ -30,7 +30,15 @@ Phases, one line of figures each (any failure raises and exits nonzero):
      stages at batches 5, 16 and 32 (NRMSE 1e-5, new_mask equal), its
      forward's time beside the plain stage's with cuDNN's search off (as
      the port trains) and on; its 5 kernels built, the MMA and one-channel
-     ones with HMMA;
+     ones with HMMA; then ffc_local (csrc/ffc_conv.cu, Big-LaMa's block
+     FFC: y_l = l2l(x_l) + g2l(x_g), y_g = l2g(x_l) + s, 3x3 reflect) at
+     64^2, 128 + 384 channels, batches 16, 8 and 5 against its plain
+     version in float64 (NRMSE 1e-6 for y_l and y_g, the plain version in
+     TF32 failing it), bitwise over two calls, FFCLocal's gradients
+     against autograd through the plain version (rel L2 1e-5), its time in
+     one launch and as two beside the plain version's (cuDNN's heuristic,
+     its search off, as the port trained) and the bound; four other shapes; and a Big-LaMa
+     generator's forward at 512^2 launching it 36 times, train and eval;
   4. K1 upsample2x_fwd against its plain version at the 7 decoder
      shapes at batch 2 and 8, fp32 (torch's bits) and, at batch 2, bf16
      (1 ulp); per shape the device ms a call by CUDA graph replay of the
@@ -246,6 +254,7 @@ from terra_gan_tpu_torch.ops.cuda.upsample_kernel import (
     upsample2x_fwd_plain,
 )
 from terra_gan_tpu_torch.ops.cuda.tail_kernel import fused_decoder_tail, fused_decoder_tail_plain
+from terra_gan_tpu_torch.ops.cuda.ffc_kernel import ffc_local, ffc_local_kernel, ffc_local_plain
 from terra_gan_tpu_torch.ops.resize import upsample2x_bilinear
 from terra_gan_tpu_torch.parallel.infer import BatchedInpainter
 from terra_gan_tpu_torch.losses import human_guided_loss
@@ -309,6 +318,20 @@ K3_NRMSE_TOL = 1e-5
 K2_TRAIN_BATCHES = (5, 16, 32)
 # its output (before BatchNorm) against the plain partial conv: fp32 sums in another order
 K2_TRAIN_NRMSE_TOL = 1e-5
+# The block FFC's local and cross convolutions (ffc_local) at Big-LaMa's
+# block shapes, 64^2, 128 local and 384 global channels, at the LaMa
+# training cell's batch 16, the eval path's chunk 8 and the fine-tune's 5
+FFC_BATCHES = (16, 8, 5)
+FFC_SIDE, FFC_LOCAL, FFC_GLOBAL = 64, 128, 384
+# NRMSE against the plain version in float64: 3xTF32 products summed in
+# fp32 read about 1e-7; the plain version in TF32 must exceed it
+FFC_NRMSE_TOL = 1e-6
+# (batch, local, global channels, H, W) beside the block's
+FFC_OTHER_SHAPES = ((2, 8, 24, 13, 14), (2, 12, 20, 5, 70), (3, 132, 388, 32, 130),
+                    (1, 4, 4, 2, 2))
+# FFCLocal's gradients against autograd through the plain version, rel L2:
+# the same cuDNN calls, the pad's backward summed in another order
+FFC_GRAD_TOL = 1e-5
 SERVE_REQUESTS, SERVE_BATCH_ITEMS, SERVE_MAX_BATCH = 16, 4, 8
 SERVE_SECRET = "chip-smoke-secret"
 # K1 is timed at the batch of the other kernels and at the profile's 8
@@ -341,7 +364,9 @@ PEAKS = {"fp32": "fp32 outside the tensor cores, 67 TFLOP/s",
          "k2": "3xTF32: 3 TF32 products per fp32 product at 495 TFLOP/s (165 TFLOP/s of fp32 "
                "products), every stage (enc1's one-channel variant too)",
          "k3": "3xTF32 for dec1 (165 TFLOP/s of fp32 products), counted once, not the "
-               "recomputed halo; 67 TFLOP/s fp32 for the final conv and the skip term"}
+               "recomputed halo; 67 TFLOP/s fp32 for the final conv and the skip term",
+         "ffc": "3xTF32: 3 TF32 products per fp32 product at 495 TFLOP/s (165 TFLOP/s of fp32 "
+                "products), the three convolutions; the sums and the pack not counted"}
 
 
 def require(cond: bool, msg: str) -> None:
@@ -542,6 +567,18 @@ def phase_build():
     require(len(k3) == 1 and all(r.get("hmma", 0) > 0 for r in k3.values()),
             f"build: K3 shows no tensor-core instructions: {k3}")
     require(all(r.get("spill_bytes") == 0 for r in k3.values()), f"build: K3 spills: {k3}")
+    ffc = {fn: r for fn, r in report.items() if "ffc_local_kernel" in fn}
+    smem, threads, rows, cols, chans = (ctypes.c_int() for _ in range(5))
+    check(lib.tg_ffc_local_info(*(ctypes.byref(v) for v in (smem, threads, rows, cols, chans))),
+          "tg_ffc_local_info")
+    for fn, r in sorted(ffc.items()):
+        line("build", ffc_kernel=fn, registers=r.get("registers"), spill_bytes=r.get("spill_bytes"),
+             dynamic_smem=smem.value, threads=threads.value,
+             tile=f"{rows.value}x{cols.value}x{chans.value}", hmma=r.get("hmma"),
+             hgmma=r.get("hgmma"))
+    require(len(ffc) == 2 and all(r.get("hmma", 0) > 0 and r.get("spill_bytes") == 0
+                                  for r in ffc.values()),
+            f"build: the FFC kernels are not 2 with HMMA and without spills: {ffc}")
     # P1's and P2's 6 lane counts (one kernel for both) and P4, each in two variants
     p2p4 = {fn: r for fn, r in report.items()
             if "matvec_dot_kernel" in fn or "mask_broadcast_kernel" in fn}
@@ -791,6 +828,131 @@ def phase_k2_train(model, dev):
     return {"nrmse_max": worst, **{f"batch{b}": t for b, t in totals.items()},
             "timing": "forward alone, median of 5 CUDA-event calls; plain_ms with cuDNN's "
                       "search off (as the port trains), searched_ms with it on"}
+
+
+def ffc_inputs(b: int, gen, dev, cl: int = FFC_LOCAL, cg: int = FFC_GLOBAL, h: int = FFC_SIDE,
+               w: int = FFC_SIDE):
+    """Seeded (x_l, x_g, s, w_l2l, w_g2l, w_l2g), a block FFC's by default:
+    the inputs after a ReLU, He-normal weights."""
+    t = [torch.relu(torch.randn((b, cl, h, w), generator=gen)),
+         torch.relu(torch.randn((b, cg, h, w), generator=gen)),
+         torch.randn((b, cg, h, w), generator=gen)]
+    for cout, cin in ((cl, cl), (cl, cg), (cg, cl)):
+        t.append(torch.randn((cout, cin, 3, 3), generator=gen) * math.sqrt(2.0 / (9 * cin)))
+    return [v.to(dev) for v in t]
+
+
+def ffc_flops(batch: int) -> float:
+    """The three convolutions' operations at a block FFC's shapes."""
+    cl, cg = FFC_LOCAL, FFC_GLOBAL
+    return 2.0 * batch * FFC_SIDE**2 * 9 * (cl * (cl + cg) + cg * cl)
+
+
+def phase_ffc(dev):
+    """``ffc_local`` (csrc/ffc_conv.cu) against its plain version at a block
+    FFC's shapes at each of FFC_BATCHES: y_l's and y_g's NRMSE and worst
+    error against the plain version in float64 (the plain version in fp32
+    with cuDNN's heuristic, and in TF32, beside it; TF32 must fail the
+    gate), bitwise equal over two calls; FFCLocal's gradients against
+    autograd through the plain version; the times of the kernel (its pack
+    included) in one launch and as two (y_l and y_g alone), the pack alone,
+    and the plain version with cuDNN's search off (as the port trained),
+    beside the bound; then a Big-LaMa generator's forward and backward
+    at 512^2, batch 2, launching it 36 times a forward."""
+    gen = torch.Generator().manual_seed(SEED + 60)
+    flags = torch.backends.cudnn.benchmark
+    figures = {}
+    for batch in FFC_BATCHES:
+        args = ffc_inputs(batch, gen, dev)
+        with torch.no_grad():
+            got = ffc_local(*args)
+            again = ffc_local(*args)
+            want = ffc_local_plain(*(a.double() for a in args))
+            # cuDNN's heuristic, its search off, as the port trained: torch keeps the
+            # first algorithm it finds for a shape, so no searched time can follow here
+            try:
+                torch.backends.cudnn.benchmark = False
+                plain = ffc_local_plain(*args)
+                t_p = time_ms(lambda: ffc_local_plain(*args), 20)
+                torch.backends.cudnn.allow_tf32 = True
+                tf32 = ffc_local_plain(*args)
+            finally:
+                torch.backends.cudnn.benchmark = flags
+                torch.backends.cudnn.allow_tf32 = False
+        errs = {}
+        for name, g, f, p, w in zip(("y_l", "y_g"), got, tf32, plain, want):
+            errs[name] = dict(nrmse=nrmse(g, w), worst=((g.double() - w).abs().max()
+                                                        / w.abs().max()).item(),
+                              plain_nrmse=nrmse(p, w), tf32_nrmse=nrmse(f, w))
+        bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
+        del got, again, want, plain, tf32
+        with torch.no_grad():
+            two = lambda: (ffc_local_kernel(*args, outputs="local"),  # noqa: E731
+                           ffc_local_kernel(*args, outputs="global"))
+            t_k, t_two, t_k2, t_two2 = (time_ms(fn, 20) for fn in (
+                lambda: ffc_local(*args), two, lambda: ffc_local(*args), two))
+            t_pack = time_ms(lambda: pack_pconv_weights(args[3:]), 20)
+        # gradients: FFCLocal against autograd through the plain version
+        leaves = [a.detach().requires_grad_() for a in args]
+        outs = ffc_local(*leaves)
+        grads_out = [torch.randn(o.shape, generator=gen).to(dev) for o in outs]
+        got_g = torch.autograd.grad(outs, leaves, grads_out)
+        del outs
+        leaves_p = [a.detach().requires_grad_() for a in args]
+        want_g = torch.autograd.grad(ffc_local_plain(*leaves_p), leaves_p, grads_out)
+        grad_err = max(rel_l2(g, w) for g, w in zip(got_g, want_g))
+        del leaves, leaves_p, got_g, want_g, grads_out
+        # the inputs and weights read once, y_l (x_l's size) and y_g (s's) written once
+        b = bound(ffc_flops(batch), nbytes(*args, args[0], args[2]), TF32X3_FLOPS)
+        t_k, t_two = min(t_k, t_k2), min(t_two, t_two2)
+        figures[f"batch{batch}"] = dict(ms=t_k, two_launches_ms=t_two, pack_ms=t_pack,
+                                        plain_ms=t_p, **b,
+                                        tflops=ffc_flops(batch) / t_k / 1e9, grad_rel_l2=grad_err,
+                                        **{f"{k}_{m}": v for k, e in errs.items()
+                                           for m, v in e.items()})
+        line("ffc", batch=batch, shape=f"{batch}x({FFC_LOCAL}+{FFC_GLOBAL})x{FFC_SIDE}x{FFC_SIDE}",
+             ms=f"{t_k:.4f}", two_launches_ms=f"{t_two:.4f}", pack_ms=f"{t_pack:.4f}",
+             plain_ms=f"{t_p:.4f}", bound_ms=f"{b['bound_ms']:.4f}",
+             of_bound=f"{100 * b['bound_ms'] / t_k:.1f}%", bitwise=bitwise,
+             grad_rel_l2=f"{grad_err:.3e}",
+             **{f"{k}_{m}": f"{v:.3e}" for k, e in errs.items() for m, v in e.items()})
+        for name, e in errs.items():
+            require(e["nrmse"] <= FFC_NRMSE_TOL,
+                    f"ffc {name} at batch {batch}: NRMSE {e['nrmse']} against float64")
+            require(e["tf32_nrmse"] > FFC_NRMSE_TOL,
+                    f"ffc {name}: TF32 reads {e['tf32_nrmse']}, within the gate")
+        require(bitwise, f"ffc at batch {batch}: two calls differ")
+        require(grad_err <= FFC_GRAD_TOL, f"ffc at batch {batch}: gradients {grad_err}")
+        del args
+    # other shapes the kernel takes: ragged channel groups, odd rows, a
+    # width that is no multiple of 4 (its 4-byte copies) or of the 64-column tile
+    for b, cl, cg, h, w in FFC_OTHER_SHAPES:
+        args = ffc_inputs(b, gen, dev, cl, cg, h, w)
+        with torch.no_grad():
+            got = ffc_local(*args)
+            want = ffc_local_plain(*(a.double() for a in args))
+        err = max(nrmse(g, v) for g, v in zip(got, want))
+        line("ffc", shape=f"{b}x({cl}+{cg})x{h}x{w}", nrmse=f"{err:.3e}")
+        require(err <= FFC_NRMSE_TOL, f"ffc at {b}x({cl}+{cg})x{h}x{w}: NRMSE {err}")
+    # the main path: Big-LaMa's forward and backward, the block FFCs on the kernel
+    G = init_generator(WIDTH, torch.Generator().manual_seed(SEED), dev, arch="big_lama").train()
+    x = torch.rand((2, SIZE, SIZE, 1), generator=gen).to(dev)
+    m = (torch.rand((2, SIZE, SIZE, 1), generator=gen) > 0.3).float().to(dev)
+    before = ffc_local.launches
+    G(x * m, m).mean().backward()
+    train_launches = ffc_local.launches - before
+    G.eval()
+    with torch.no_grad():
+        G(x * m, m)
+    eval_launches = ffc_local.launches - before - train_launches
+    blocks = G.sizes["n_blocks"]
+    line("ffc", main_path="big_lama 512^2 batch 2", train_forward_launches=train_launches,
+         eval_forward_launches=eval_launches, block_ffcs=2 * blocks)
+    require(train_launches == eval_launches == 2 * blocks,
+            f"ffc: {train_launches} and {eval_launches} launches a forward, not {2 * blocks}")
+    del G
+    figures["launches_a_forward"] = train_launches
+    return figures
 
 
 def _bf16_ulp(v: torch.Tensor) -> torch.Tensor:
@@ -2524,7 +2686,7 @@ def phase_human_guided(dev, counters, card: str):
     steps = HG_EPOCHS * math.ceil(HG_TILES / HG_BATCH)
     master_steps = int(master["generator_state_dict"]["enc1.bn.num_batches_tracked"])
     keys = {"generator_state_dict", "human_guided", "source_model", "resumed_from_preemption",
-            "grid_square", "best_loss", "config", "vgg_weights_provenance"}
+            "grid_square", "best_loss", "config", "vgg_weights_provenance", "architecture"}
     line("human_guided", card=repr(card), exit=code, tiles=HG_TILES, batch=HG_BATCH,
          epochs=HG_EPOCHS, steps=steps, seconds=f"{run_s:.2f}",
          fetch_s=[f"{t:.4f}" for t, _ in fetches], annotations=[n for _, n in fetches],
@@ -2560,6 +2722,7 @@ def phase_human_guided(dev, counters, card: str):
     require(len(fetches) == 1 and fetches[0][1] == HG_TILES and len(fetched) == HG_TILES,
             f"human_guided: fetched {fetches}, {len(fetched)} files")
     require(set(master) == keys and master["human_guided"] is True
+            and master["architecture"] == "pconv_unet"
             and master["grid_square"] == HG_GRID and len(stamped) == 1
             and master["resumed_from_preemption"] is False
             and master["source_model"] == str(Path("ckpts/master_checkpoint.pth")),
@@ -2607,7 +2770,8 @@ def main() -> None:
     figures = {"fused_pconv_eval": phase_k2(model, dev),
                "fused_pconv_train": phase_k2_train(model, dev),
                "upsample2x_fwd": phase_k1(model, dev),
-               "upsample2x_bwd": phase_k1_bwd(model, dev), "pack_pconv_weights": phase_pack(model)}
+               "upsample2x_bwd": phase_k1_bwd(model, dev), "pack_pconv_weights": phase_pack(model),
+               "ffc_local": phase_ffc(dev)}
     counters = (fused_pconv_eval, upsample2x_fwd, upsample2x_bwd, fused_decoder_tail,
                 pack_pconv_weights, fused_pconv_train)
     runs = [phase_slice(model, dev, counters)]
@@ -2629,6 +2793,7 @@ def main() -> None:
     for run in runs:
         for name, n in run.items():
             launches[name] += n
+    launches["ffc_local"] = figures["ffc_local"]["launches_a_forward"]  # Big-LaMa's, ffc phase
 
     sources = {
         "fused_pconv_eval": ("pconv_eval.cu", "terra_gan_tpu/ops/pallas/pconv_kernel.py:297"),
@@ -2640,19 +2805,22 @@ def main() -> None:
         "fused_decoder_tail": ("decoder_tail.cu", "terra_gan_tpu/ops/pallas/tail_kernel.py:226"),
         # part of K2's port: its weight planes (the TPU kernel reads the weight as it is)
         "pack_pconv_weights": ("pconv_eval.cu", "terra_gan_tpu/ops/pallas/pconv_kernel.py:297"),
+        # Big-LaMa's block FFCs: the JAX package has no Big-LaMa
+        "ffc_local": ("ffc_conv.cu", "none"),
         **{name: ("probes.cu", f"scripts/probe_mosaic.py:{ln}")
            for name, ln in PROBE_REPLACES.items()},
     }
     require(all(launches[name] > 0 for name in sources),
             f"a kernel of the main paths was never launched there: {launches}")
-    peaks = {"fused_pconv_eval": "k2", "fused_pconv_train": "k2", "fused_decoder_tail": "k3"}
+    peaks = {"fused_pconv_eval": "k2", "fused_pconv_train": "k2", "fused_decoder_tail": "k3",
+             "ffc_local": "ffc"}
     kernels = [
         {"name": name, "route": "cuda", "source": f"terra_gan_tpu_torch/csrc/{src}",
          "replaces": replaces, "launches": launches[name], **figures[name],
          "peak": PEAKS[peaks.get(name, "fp32")]}
         for name, (src, replaces) in sources.items()
     ]
-    wrappers = {fn.__name__: fn for fn in counters + PROBES}
+    wrappers = {fn.__name__: fn for fn in counters + PROBES + (ffc_local,)}
     for k in kernels:  # K2's, P2's and P4's launches by variant
         wrapper = wrappers[k["name"]]
         if hasattr(wrapper, "variants"):

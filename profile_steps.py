@@ -31,6 +31,8 @@ off), and prints one JSON object: the cell's end-to-end metrics and
     and ``k2_train_stages`` and ``k2_train_launches`` (by variant), the
     generator's PConv stages run on K2's train variant
     (``fused_pconv_train.launches`` and ``.variants``): 14 a forward;
+    ``ffc_local_launches``, Big-LaMa's block FFCs run on their kernel
+    (``ffc_local.launches``, one launch an FFC): 36 a forward;
     with Big-LaMa as G, ``spectral_calls`` and ``spectral_elements``
     (``SpectralTransform.calls`` and ``.elements``: 36 transforms a
     forward) and ``lama_forward_ms``, the device ms a step launched in
@@ -98,12 +100,13 @@ def host_calls(calls, marks, window: Tuple[float, float], steps: int) -> dict:
 def counters(device: torch.device) -> Dict[str, float]:
     from terra_gan_tpu_torch.data.dataset import BatchLoader
     from terra_gan_tpu_torch.models.lama import SpectralTransform
+    from terra_gan_tpu_torch.ops.cuda.ffc_kernel import ffc_local
     from terra_gan_tpu_torch.ops.cuda.pconv_kernel import fused_pconv_train
 
     out = {"feed_batches": BatchLoader.batches, "feed_ready": BatchLoader.ready,
            "feed_make_s": BatchLoader.make_s, "k2_train_stages": fused_pconv_train.launches,
            **{f"k2_train.{v}": n for v, n in fused_pconv_train.variants.items()},
-           "spectral_calls": SpectralTransform.calls,
+           "ffc_local_launches": ffc_local.launches, "spectral_calls": SpectralTransform.calls,
            "spectral_elements": SpectralTransform.elements}
     if device.type == "cuda":
         stats = torch.cuda.memory_stats(device)
@@ -163,6 +166,8 @@ def per_step(counts: dict, trace: PhaseTrace) -> dict:
         out["k2_train_stages"] = counts["k2_train_stages"] / steps
         out["k2_train_launches"] = {k.split(".", 1)[1]: n / steps for k, n in counts.items()
                                     if k.startswith("k2_train.")}
+    if "ffc_local_launches" in counts:
+        out["ffc_local_launches"] = counts["ffc_local_launches"] / steps
     if counts.get("spectral_calls"):
         out["spectral_calls"] = counts["spectral_calls"] / steps
         out["spectral_elements"] = counts["spectral_elements"] / steps

@@ -41,8 +41,12 @@ The port's forward contract is PConvUNet's: ``forward(x * m, m)`` on
 NHWC [B,H,W,1] with m = 1 where kept, returning the composite
 ``out * (1 - m) + x * m``. The network's input is ``[x * m, 1 - m]``:
 LaMa's mask is 1 in the hole. H and W must divide by 2**n_downsampling.
-Internally the tensors are NCHW; every operation is stock PyTorch
-(cuDNN's convolutions, cuFFT's transforms).
+Internally the tensors are NCHW. A block FFC's local and cross
+convolutions and their sums are one call of ``ops.cuda.ffc_kernel.
+ffc_local`` (a 3xTF32 tensor-core kernel on a card, the plain
+``F.pad``/``F.conv2d`` version on the CPU; its parameters stay in
+``convl2l``, ``convg2l`` and ``convl2g``); every other operation is
+stock PyTorch (cuDNN's convolutions, cuFFT's transforms).
 
 Under a profiler (utils/trace.py) the forward's parts are the ranges
 ``tg.lama_down`` (the input, the 7x7 and the downsamplings),
@@ -57,12 +61,12 @@ and ``SpectralTransform.elements`` the real elements they transformed
 
 from __future__ import annotations
 
-import contextlib
 from typing import Dict, Mapping, Optional, Tuple
 
 import torch
 from torch import nn
 
+from ..ops.cuda.ffc_kernel import ffc_local
 from ..utils.trace import span
 
 Pair = Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]
@@ -149,16 +153,22 @@ class FFC(nn.Module):
             self.convg2g = SpectralTransform(in_cg, out_cg)
         else:
             self.convg2g = None
+        # a block's FFC: both branches in and out, 3x3 at stride 1, reflect padding 1
+        self.fused = (all(c is not None for c in (self.convl2l, self.convg2l, self.convl2g,
+                                                  self.convg2g))
+                      and (kernel_size, stride, padding) == (3, 1, 1))
 
     def forward(self, x_l: Optional[torch.Tensor], x_g: Optional[torch.Tensor]) -> Pair:
         def apply(conv, x):
             return None if conv is None or x is None else conv(x)
 
         s = apply(self.convg2g, x_g)
-        # a block's FFC (both branches in and out) is a range of its own
-        with span("tg.ffc_local") if self.convg2g is not None else contextlib.nullcontext():
-            y_l = _add(apply(self.convl2l, x_l), apply(self.convg2l, x_g))
-            y_g = _add(apply(self.convl2g, x_l), s)
+        if self.fused:  # a range of its own, the local and cross convolutions in one call
+            with span("tg.ffc_local"):
+                return ffc_local(x_l, x_g, s, self.convl2l.weight, self.convg2l.weight,
+                                 self.convl2g.weight)
+        y_l = _add(apply(self.convl2l, x_l), apply(self.convg2l, x_g))
+        y_g = _add(apply(self.convl2g, x_l), s)
         return y_l, y_g
 
 

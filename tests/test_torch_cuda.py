@@ -38,6 +38,8 @@ from terra_gan_tpu_torch.ops.cuda.upsample_kernel import (
     upsample2x_fwd_plain,
 )
 from terra_gan_tpu_torch.ops.cuda.tail_kernel import fused_decoder_tail, fused_decoder_tail_plain
+from terra_gan_tpu_torch.ops.cuda.ffc_kernel import ffc_local, ffc_local_kernel, ffc_local_plain
+from terra_gan_tpu_torch.models.lama import FFCResNetGenerator
 from terra_gan_tpu_torch.ops.resize import upsample2x_bilinear
 from terra_gan_tpu_torch.cli import doctor
 from terra_gan_tpu_torch.cli.probe_cuda import probe_cases, probe_inputs
@@ -997,3 +999,49 @@ def test_doctor_passes_on_the_card(card, capsys):
     out = capsys.readouterr().out
     assert "[FAIL" not in out and "[WARN" not in out
     assert out.count(" OK maxerr=") == 5
+
+
+def ffc_args(seed, b, cl, cg, h, w, dev):
+    g = torch.Generator().manual_seed(seed)
+    shapes = [(b, cl, h, w), (b, cg, h, w), (b, cg, h, w), (cl, cl, 3, 3), (cl, cg, 3, 3),
+              (cg, cl, 3, 3)]
+    return [(torch.randn(s, generator=g) * (0.1 if i >= 3 else 1.0)).to(dev)  # weights * 0.1
+            for i, s in enumerate(shapes)]
+
+
+@pytest.mark.parametrize("b,cl,cg,h,w", [(2, 128, 384, 64, 64), (2, 8, 24, 13, 14),
+                                         (1, 12, 20, 5, 70), (1, 4, 4, 2, 2)])
+def test_ffc_local_kernel_matches_plain(card, b, cl, cg, h, w):
+    """Against the plain version in float64: 3xTF32 sums in fp32 (about 1e-7);
+    TF32 alone reads about 5e-5. Two calls are bitwise equal."""
+    args = ffc_args(b + cl + h + w, b, cl, cg, h, w, card)
+    launches = ffc_local.launches
+    got = ffc_local_kernel(*args)
+    assert ffc_local.launches == launches + 1
+    want = ffc_local_plain(*(a.double() for a in args))
+    for g, v in zip(got, want):
+        assert nrmse(g.cpu(), v.cpu()) < 1e-6
+    assert all(torch.equal(a, c) for a, c in zip(got, ffc_local_kernel(*args)))
+
+
+def test_ffc_local_gradients_match_autograd_through_plain(card):
+    args = ffc_args(7, 2, 16, 48, 16, 16, card)
+    got_in = [a.clone().requires_grad_() for a in args]
+    want_in = [a.clone().requires_grad_() for a in args]
+    outs = ffc_local(*got_in)
+    grads = [torch.randn_like(o) for o in outs]
+    got = torch.autograd.grad(outs, got_in, grads)
+    want = torch.autograd.grad(ffc_local_plain(*want_in), want_in, grads)
+    for a, c in zip(got, want):
+        assert float((a - c).norm() / c.norm()) < 1e-5
+
+
+def test_lama_block_ffcs_launch_the_kernel_once_a_forward(card):
+    G = FFCResNetGenerator(ngf=8, n_downsampling=3, n_blocks=2).to(card).train()
+    x = torch.rand((2, 64, 64, 1), device=card)
+    m = (torch.rand((2, 64, 64, 1), device=card) > 0.3).float()
+    launches = ffc_local.launches
+    G(x * m, m).mean().backward()
+    assert ffc_local.launches - launches == 4  # 2 a block
+    with pytest.raises(ValueError, match="multiples of 4"):
+        ffc_local_kernel(*ffc_args(1, 1, 6, 24, 8, 8, card))

@@ -198,8 +198,8 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
 
 def test_build_sources_and_key():
     srcs, deps = _build._sources()
-    assert {p.name for p in srcs} == {"decoder_tail.cu", "pconv_eval.cu", "probes.cu",
-                                      "upsample2x.cu"}
+    assert {p.name for p in srcs} == {"decoder_tail.cu", "ffc_conv.cu", "pconv_eval.cu",
+                                      "probes.cu", "upsample2x.cu"}
     key = _build._digest(srcs + deps)
     assert len(key) == 16 and key == _build._digest(srcs + deps)
     assert "--use_fast_math" not in _build.NVCC_FLAGS

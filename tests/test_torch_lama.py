@@ -312,4 +312,5 @@ def test_a_small_lama_cell_under_profile_steps():
         assert rep["ranges"][name] == steps
     assert rep["ranges"]["tg.ffc_spectral"] == rep["ranges"]["tg.ffc_local"] == 4 * steps
     assert rep["per_step"]["spectral_calls"] == 2 * SIZES["n_blocks"]  # one G forward a step
+    assert rep["per_step"]["ffc_local_launches"] == 0  # the plain version on the CPU: no launch
     assert set(rep["per_step"]["lama_forward_ms"]) == set(ps.LAMA_RANGES)

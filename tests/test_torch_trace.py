@@ -351,6 +351,13 @@ def test_per_step_k2_train_counts(ps):
                                         "split_reduce": 6.0, "simt": 0.0}
 
 
+def test_per_step_ffc_local_launches(ps):
+    tr = _phase_trace(ps, WINDOW + RANGES + KERNELS)
+    got = ps.per_step({"steps": 4, "feed_batches": 0, "ffc_local_launches": 144}, tr)
+    assert got["ffc_local_launches"] == 36.0  # Big-LaMa's 36 block FFCs a forward, a launch each
+    assert "ffc_local_launches" not in ps.per_step({"steps": 4, "feed_batches": 0}, tr)
+
+
 def test_a_small_hg_cell_under_profile_steps(ps):
     args = argparse.Namespace(workload="gan.hg-b5", seed=2**31 + 5, seconds=1.0, trace=0)
     small = {"config": {"base_width": 8, "discriminator_width": 8, "image_size": 128,
