@@ -35,10 +35,10 @@ Phases, one line of figures each (any failure raises and exits nonzero):
      64^2, 128 + 384 channels, batches 16, 8 and 5 against its plain
      version in float64 (NRMSE 1e-6 for y_l and y_g, the plain version in
      TF32 failing it), bitwise over two calls, FFCLocal's gradients
-     against autograd through the plain version (rel L2 1e-5), its time in
-     one launch and as two beside the plain version's (cuDNN's heuristic,
-     its search off, as the port trained) and the bound; four other shapes; and a Big-LaMa
-     generator's forward at 512^2 launching it 36 times, train and eval;
+     against autograd through the plain version (rel L2 1e-5), its time
+     beside the plain version's (cuDNN's heuristic, its search off, as the
+     port trained, and in a fresh process with the search on) and the
+     bound; four other shapes;
   4. K1 upsample2x_fwd against its plain version at the 7 decoder
      shapes at batch 2 and 8, fp32 (torch's bits) and, at batch 2, bf16
      (1 ulp); per shape the device ms a call by CUDA graph replay of the
@@ -70,7 +70,10 @@ Phases, one line of figures each (any failure raises and exits nonzero):
      off; the launch counts (K1 forward and backward 7 per step, K2's
      train variant 14 and the pack 1 per step, K2 and K3 only in
      validation), the best checkpoint reloaded strictly into
-     a fresh state, ms per step, samples/s and peak memory;
+     a fresh state, ms per step, samples/s and peak memory; then
+     Big-LaMa (seeded G, D and VGG): one GAN step of make_train_step at
+     batch 2 and evaluate on one PNG tile, each launching ffc_local 36
+     times (once a block FFC), counted from 0;
   9. train_grad: one batch of 8 through the G objective's forward and
      backward, once through the kernels (K1, K2's train variant) and once
      with torch's own upsample in K1's place (K2's train stages in both),
@@ -254,7 +257,7 @@ from terra_gan_tpu_torch.ops.cuda.upsample_kernel import (
     upsample2x_fwd_plain,
 )
 from terra_gan_tpu_torch.ops.cuda.tail_kernel import fused_decoder_tail, fused_decoder_tail_plain
-from terra_gan_tpu_torch.ops.cuda.ffc_kernel import ffc_local, ffc_local_kernel, ffc_local_plain
+from terra_gan_tpu_torch.ops.cuda.ffc_kernel import ffc_local, ffc_local_plain
 from terra_gan_tpu_torch.ops.resize import upsample2x_bilinear
 from terra_gan_tpu_torch.parallel.infer import BatchedInpainter
 from terra_gan_tpu_torch.losses import human_guided_loss
@@ -848,6 +851,34 @@ def ffc_flops(batch: int) -> float:
     return 2.0 * batch * FFC_SIDE**2 * 9 * (cl * (cl + cg) + cg * cl)
 
 
+def ffc_searched_child() -> dict:
+    """{batch: ms} of the plain version at FFC_BATCHES with cuDNN's search
+    on, fp32, TF32 off; run in a fresh process (``ffc_searched_ms``)."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.benchmark = True
+    gen = torch.Generator().manual_seed(SEED + 60)
+    dev = torch.device("cuda", 0)
+    out = {}
+    with torch.no_grad():
+        for batch in FFC_BATCHES:
+            args = ffc_inputs(batch, gen, dev)
+            out[batch] = time_ms(lambda: ffc_local_plain(*args), 20)
+    return out
+
+
+def ffc_searched_ms() -> dict:
+    """``ffc_searched_child`` in a process of its own: torch keeps the first
+    cuDNN algorithm it finds for a shape, searched or not, so in this one
+    the heuristic's would stand."""
+    code = "import json, chip_smoke as cs; print(json.dumps(cs.ffc_searched_child()))"
+    res = subprocess.run([sys.executable, "-c", code], cwd=Path(__file__).resolve().parent,
+                         capture_output=True, text=True, timeout=600)
+    require(res.returncode == 0,
+            f"ffc: the searched cuDNN timing exited {res.returncode}: {res.stderr[-2000:]}")
+    return {int(k): v for k, v in json.loads(res.stdout.strip().splitlines()[-1]).items()}
+
+
 def phase_ffc(dev):
     """``ffc_local`` (csrc/ffc_conv.cu) against its plain version at a block
     FFC's shapes at each of FFC_BATCHES: y_l's and y_g's NRMSE and worst
@@ -855,10 +886,10 @@ def phase_ffc(dev):
     with cuDNN's heuristic, and in TF32, beside it; TF32 must fail the
     gate), bitwise equal over two calls; FFCLocal's gradients against
     autograd through the plain version; the times of the kernel (its pack
-    included) in one launch and as two (y_l and y_g alone), the pack alone,
-    and the plain version with cuDNN's search off (as the port trained),
-    beside the bound; then a Big-LaMa generator's forward and backward
-    at 512^2, batch 2, launching it 36 times a forward."""
+    included), the pack alone, and the plain version with cuDNN's search
+    off (as the port trained) and, timed in a fresh process, on, beside
+    the bound; then other shapes."""
+    searched = ffc_searched_ms()
     gen = torch.Generator().manual_seed(SEED + 60)
     flags = torch.backends.cudnn.benchmark
     figures = {}
@@ -868,8 +899,7 @@ def phase_ffc(dev):
             got = ffc_local(*args)
             again = ffc_local(*args)
             want = ffc_local_plain(*(a.double() for a in args))
-            # cuDNN's heuristic, its search off, as the port trained: torch keeps the
-            # first algorithm it finds for a shape, so no searched time can follow here
+            # cuDNN's heuristic, its search off, as the port trained (searched: above)
             try:
                 torch.backends.cudnn.benchmark = False
                 plain = ffc_local_plain(*args)
@@ -887,10 +917,7 @@ def phase_ffc(dev):
         bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
         del got, again, want, plain, tf32
         with torch.no_grad():
-            two = lambda: (ffc_local_kernel(*args, outputs="local"),  # noqa: E731
-                           ffc_local_kernel(*args, outputs="global"))
-            t_k, t_two, t_k2, t_two2 = (time_ms(fn, 20) for fn in (
-                lambda: ffc_local(*args), two, lambda: ffc_local(*args), two))
+            t_k = time_ms(lambda: ffc_local(*args), 20)
             t_pack = time_ms(lambda: pack_pconv_weights(args[3:]), 20)
         # gradients: FFCLocal against autograd through the plain version
         leaves = [a.detach().requires_grad_() for a in args]
@@ -904,15 +931,15 @@ def phase_ffc(dev):
         del leaves, leaves_p, got_g, want_g, grads_out
         # the inputs and weights read once, y_l (x_l's size) and y_g (s's) written once
         b = bound(ffc_flops(batch), nbytes(*args, args[0], args[2]), TF32X3_FLOPS)
-        t_k, t_two = min(t_k, t_k2), min(t_two, t_two2)
-        figures[f"batch{batch}"] = dict(ms=t_k, two_launches_ms=t_two, pack_ms=t_pack,
-                                        plain_ms=t_p, **b,
+        figures[f"batch{batch}"] = dict(ms=t_k, pack_ms=t_pack,
+                                        plain_ms=t_p, searched_ms=searched[batch], **b,
                                         tflops=ffc_flops(batch) / t_k / 1e9, grad_rel_l2=grad_err,
                                         **{f"{k}_{m}": v for k, e in errs.items()
                                            for m, v in e.items()})
         line("ffc", batch=batch, shape=f"{batch}x({FFC_LOCAL}+{FFC_GLOBAL})x{FFC_SIDE}x{FFC_SIDE}",
-             ms=f"{t_k:.4f}", two_launches_ms=f"{t_two:.4f}", pack_ms=f"{t_pack:.4f}",
-             plain_ms=f"{t_p:.4f}", bound_ms=f"{b['bound_ms']:.4f}",
+             ms=f"{t_k:.4f}", pack_ms=f"{t_pack:.4f}",
+             plain_ms=f"{t_p:.4f}", searched_ms=f"{searched[batch]:.4f}",
+             bound_ms=f"{b['bound_ms']:.4f}",
              of_bound=f"{100 * b['bound_ms'] / t_k:.1f}%", bitwise=bitwise,
              grad_rel_l2=f"{grad_err:.3e}",
              **{f"{k}_{m}": f"{v:.3e}" for k, e in errs.items() for m, v in e.items()})
@@ -934,24 +961,6 @@ def phase_ffc(dev):
         err = max(nrmse(g, v) for g, v in zip(got, want))
         line("ffc", shape=f"{b}x({cl}+{cg})x{h}x{w}", nrmse=f"{err:.3e}")
         require(err <= FFC_NRMSE_TOL, f"ffc at {b}x({cl}+{cg})x{h}x{w}: NRMSE {err}")
-    # the main path: Big-LaMa's forward and backward, the block FFCs on the kernel
-    G = init_generator(WIDTH, torch.Generator().manual_seed(SEED), dev, arch="big_lama").train()
-    x = torch.rand((2, SIZE, SIZE, 1), generator=gen).to(dev)
-    m = (torch.rand((2, SIZE, SIZE, 1), generator=gen) > 0.3).float().to(dev)
-    before = ffc_local.launches
-    G(x * m, m).mean().backward()
-    train_launches = ffc_local.launches - before
-    G.eval()
-    with torch.no_grad():
-        G(x * m, m)
-    eval_launches = ffc_local.launches - before - train_launches
-    blocks = G.sizes["n_blocks"]
-    line("ffc", main_path="big_lama 512^2 batch 2", train_forward_launches=train_launches,
-         eval_forward_launches=eval_launches, block_ffcs=2 * blocks)
-    require(train_launches == eval_launches == 2 * blocks,
-            f"ffc: {train_launches} and {eval_launches} launches a forward, not {2 * blocks}")
-    del G
-    figures["launches_a_forward"] = train_launches
     return figures
 
 
@@ -1414,6 +1423,46 @@ def phase_train(dev, counters):
             f"train: the checkpoint did not reload (Adam entries {n_adam})")
     require(state.generator.training, "train: G left in eval mode after validation")
     return launches
+
+
+def phase_lama(dev):
+    """Big-LaMa on the main paths, its block FFCs on ffc_local: one GAN step
+    of ``make_train_step`` at batch 2 (seeded G, D and VGG, the full loss)
+    and ``evaluate`` on one 512^2 PNG tile with G in eval mode, the
+    counter set to 0 before each."""
+    from PIL import Image
+
+    gen = torch.Generator().manual_seed(SEED + 61)
+    state = GANTrainState.create(init_generator(WIDTH, gen, dev, arch="big_lama"),
+                                 init_discriminator(WIDTH, gen, dev))
+    vgg = init_vgg(gen, dev)
+    blocks = state.generator.sizes["n_blocks"]
+    imgs, masks = dsm_tiles(2, SIZE, SEED + 62)
+    ffc_local.launches = 0
+    metrics = make_train_step(LoopConfig(batch_size=2).loss_config())(
+        state, device_batch(imgs, masks, dev), vgg)
+    train_launches = ffc_local.launches
+    state.generator.eval()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_lama_") as tmp:
+        root = Path(tmp)
+        Image.fromarray(imgs[0, ..., 0]).save(root / "t000.png")
+        Image.fromarray(masks[0, ..., 0]).save(root / "t000_mask_resized.png")
+        ffc_local.launches = 0
+        out = evaluate(root / "t000.png", root / "t000_mask_resized.png", state.generator,
+                       root / "out.png")
+        eval_launches = ffc_local.launches
+        size = Image.open(out).size
+    losses = [metrics[k].item() for k in ("g_loss", "d_loss")]
+    line("lama", train_step="gan batch 2", g_loss=f"{losses[0]:.5f}", d_loss=f"{losses[1]:.5f}",
+         train_step_launches=train_launches, evaluate_launches=eval_launches,
+         block_ffcs=2 * blocks, written=size)
+    require(all(math.isfinite(v) for v in losses), f"lama: non-finite losses {losses}")
+    require(train_launches == eval_launches == 2 * blocks,
+            f"lama: ffc_local launched {train_launches} times in a GAN step and {eval_launches} "
+            f"in evaluate, not {2 * blocks} (one forward each)")
+    require(size == (OUTPUT_SIZE, OUTPUT_SIZE), f"lama: evaluate wrote {size}")
+    del state, vgg
+    return {"ffc_local": train_launches + eval_launches}
 
 
 def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -2779,9 +2828,10 @@ def main() -> None:
     figures["fused_decoder_tail"] = phase_k3(model, dev)
     del model
     # launches: the main paths' runs, the inference slice, the train epoch,
-    # serving, the doctor, the CLI's evaluate, its train mode and its
-    # human-guided mode
+    # Big-LaMa's GAN step and evaluate, serving, the doctor, the CLI's
+    # evaluate, its train mode and its human-guided mode
     runs.append(phase_train(dev, counters))
+    runs.append(phase_lama(dev))
     phase_train_grad(dev, counters)
     runs.append(phase_serve(dev, counters))
     figures.update(phase_probes(dev))
@@ -2789,11 +2839,10 @@ def main() -> None:
     runs.append(phase_cli(dev, counters + PROBES))
     runs.append(phase_train_mode(dev, counters + PROBES, card))
     runs.append(phase_human_guided(dev, counters + PROBES, card))
-    launches = dict.fromkeys(read_counts(counters + PROBES), 0)
+    launches = dict.fromkeys(read_counts(counters + PROBES + (ffc_local,)), 0)
     for run in runs:
         for name, n in run.items():
             launches[name] += n
-    launches["ffc_local"] = figures["ffc_local"]["launches_a_forward"]  # Big-LaMa's, ffc phase
 
     sources = {
         "fused_pconv_eval": ("pconv_eval.cu", "terra_gan_tpu/ops/pallas/pconv_kernel.py:297"),

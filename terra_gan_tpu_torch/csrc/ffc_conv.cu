@@ -27,8 +27,10 @@
 //   K = 9*Ca, s added in the epilogue. A block takes 128 pixels (2 rows x
 //   64 columns of one image) by 128 output channels of one output; the
 //   grid's blockIdx.y walks y_l's channel tiles first, then y_g's, so the
-//   blocks with 4x the K of the others start first (one launch; `job0`
-//   and the grid's height also let the wrapper launch either output alone).
+//   blocks with 4x the K of the others start first. One launch for both
+//   outputs: on an H100, two launches (y_l, then y_g) were within 3 % of it
+//   at batches 16 and 8 and 7-24 % slower at batch 5, where y_l's last
+//   wave fills few SMs.
 // - K runs in stages of (part, 16 channels, kernel row ky): 48 K indices,
 //   (kx, channel). A stage stages the part's 16 channels at the tile's two
 //   input rows (reflected) as rows of 72 floats holding columns x0-4 ..
@@ -86,7 +88,6 @@ struct FfcArgs {
   int H, W, Ca, Cb, Nl, Ng;
   int tiles_x, tiles_y;  // an image's column and row tiles
   int nl_tiles;          // y_l's channel tiles: jobs below it are y_l's
-  int job0;              // the job of blockIdx.y == 0
 };
 
 // 4 bytes global -> shared, asynchronously; zero-filled when !pred
@@ -114,7 +115,7 @@ __global__ void __launch_bounds__(kFThreads, 1) ffc_local_kernel(const FfcArgs p
   const int ty = rem / p.tiles_x;
   const int y0 = ty * kFTR;
   const int x0 = (rem - ty * p.tiles_x) * kFTW;
-  const int job = blockIdx.y + p.job0;
+  const int job = blockIdx.y;
   const bool local = job < p.nl_tiles;
   const int N = local ? p.Nl : p.Ng;
   const int n0 = (local ? job : job - p.nl_tiles) * kFBN;
@@ -351,14 +352,14 @@ extern "C" int tg_ffc_local_info(int* smem_bytes, int* threads, int* tile_rows, 
 // y_l = l2l(x_l) + g2l(x_g), y_g = l2g(x_l) + s: 3x3 convolutions at
 // stride 1 with reflect padding 1, NCHW fp32, contiguous. The weights are
 // pack_pconv_weight's planes ([N][3][3][C]); Ca, Cb multiples of 4; H,
-// W >= 2. outputs: 0 both (one launch), 1 y_l alone, 2 y_g alone.
+// W >= 2.
 extern "C" int tg_ffc_local_f32(const float* xl, const float* xg, const float* s,
                                 const float* wll_hi, const float* wll_lo, const float* wgl_hi,
                                 const float* wgl_lo, const float* wlg_hi, const float* wlg_lo,
                                 float* yl, float* yg, int B, int H, int W, int Ca, int Cb, int Nl,
-                                int Ng, int outputs, void* stream) {
+                                int Ng, void* stream) {
   if (B < 1 || H < 2 || W < 2 || Ca < 4 || Ca % 4 != 0 || Cb < 4 || Cb % 4 != 0 || Nl < 1 ||
-      Ng < 1 || outputs < 0 || outputs > 2) {
+      Ng < 1) {
     return (int)cudaErrorInvalidValue;
   }
   FfcArgs a;
@@ -385,8 +386,7 @@ extern "C" int tg_ffc_local_f32(const float* xl, const float* xg, const float* s
   const int ng_tiles = (Ng + kFBN - 1) / kFBN;
   const long long blocks = (long long)B * a.tiles_y * a.tiles_x;
   if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
-  a.job0 = outputs == 2 ? a.nl_tiles : 0;
-  const int jobs = outputs == 0 ? a.nl_tiles + ng_tiles : (outputs == 1 ? a.nl_tiles : ng_tiles);
+  const int jobs = a.nl_tiles + ng_tiles;
   if (jobs > 65535) return (int)cudaErrorInvalidValue;
   return W % 4 == 0 ? launch_ffc<true>(a, (int)blocks, jobs, (cudaStream_t)stream)
                     : launch_ffc<false>(a, (int)blocks, jobs, (cudaStream_t)stream);

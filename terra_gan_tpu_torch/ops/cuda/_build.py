@@ -130,9 +130,9 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.tg_decoder_tail_info.restype = _I
     lib.tg_decoder_tail_info.argtypes = [_P] * 4
     # x_l, x_g, s, the three weights' two planes, y_l, y_g; B, H, W, Ca, Cb,
-    # Nl, Ng and which outputs
+    # Nl, Ng and the stream
     lib.tg_ffc_local_f32.restype = _I
-    lib.tg_ffc_local_f32.argtypes = [_P] * 11 + [_I] * 8 + [_P]
+    lib.tg_ffc_local_f32.argtypes = [_P] * 11 + [_I] * 7 + [_P]
     lib.tg_ffc_local_info.restype = _I
     lib.tg_ffc_local_info.argtypes = [_P] * 5
     # P1, P2 and P4 take n, c and the plan's variant, grid and block; P3

@@ -46,8 +46,6 @@ PAD = (1, 1, 1, 1)
 # the conv arguments of convolution_backward after the padded input:
 # stride, padding, dilation, transposed, output padding, groups
 _CONV = ([1, 1], [0, 0], [1, 1], False, [0, 0], 1)
-# what the kernel's C entry launches: both outputs, y_l alone, y_g alone
-OUTPUTS = {"both": 0, "local": 1, "global": 2}
 
 
 def ffc_local_plain(x_l, x_g, s, w_l2l, w_g2l, w_l2g) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -74,10 +72,9 @@ def check_args(x_l, x_g, s, w_l2l, w_g2l, w_l2g) -> None:
         raise ValueError(f"ffc_local: {b}x{h}x{w} pixels, {nl} + {ng} outputs: past the grid")
 
 
-def ffc_local_kernel(x_l, x_g, s, w_l2l, w_g2l, w_l2g, outputs: str = "both"):
+def ffc_local_kernel(x_l, x_g, s, w_l2l, w_g2l, w_l2g):
     """The kernel alone, no autograd, into new tensors; raises on what it
-    does not take. ``outputs`` "local" or "global" launches one output
-    alone (the other comes back None), for timing."""
+    does not take."""
     if x_l.device.type != "cuda":
         raise ValueError(f"ffc_local: no kernel for device {x_l.device}")
     check_args(x_l, x_g, s, w_l2l, w_g2l, w_l2g)
@@ -85,15 +82,14 @@ def ffc_local_kernel(x_l, x_g, s, w_l2l, w_g2l, w_l2g, outputs: str = "both"):
     cb, nl, ng = x_g.shape[1], w_l2l.shape[0], w_l2g.shape[0]
     (ll_hi, ll_lo), (gl_hi, gl_lo), (lg_hi, lg_lo) = pack_pconv_weights([w_l2l, w_g2l, w_l2g])
     new = lambda c: torch.empty((b, c, h, w), dtype=torch.float32, device=x_l.device)  # noqa: E731
-    y_l = new(nl) if outputs != "global" else None
-    y_g = new(ng) if outputs != "local" else None
+    y_l, y_g = new(nl), new(ng)
     lib = load_library()
     with torch.cuda.device(x_l.device):
         check(lib.tg_ffc_local_f32(
             x_l.data_ptr(), x_g.data_ptr(), s.data_ptr(), ll_hi.data_ptr(), ll_lo.data_ptr(),
             gl_hi.data_ptr(), gl_lo.data_ptr(), lg_hi.data_ptr(), lg_lo.data_ptr(),
-            None if y_l is None else y_l.data_ptr(), None if y_g is None else y_g.data_ptr(),
-            b, h, w, ca, cb, nl, ng, OUTPUTS[outputs], torch.cuda.current_stream().cuda_stream,
+            y_l.data_ptr(), y_g.data_ptr(), b, h, w, ca, cb, nl, ng,
+            torch.cuda.current_stream().cuda_stream,
         ), "ffc_local")
     ffc_local.launches += 1
     return y_l, y_g
