@@ -13,6 +13,7 @@ gives the port's colored PNGs).
 from __future__ import annotations
 
 import logging
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -242,12 +243,16 @@ def test_the_default_device_raises_without_cuda(evaluated, monkeypatch):
 
 
 def test_python_m_package_runs_the_pipeline(tmp_path):
-    out = subprocess.run(
-        [sys.executable, "-m", "terra_gan_tpu_torch", "--mode", "human_guided_train", "--config",
-         "none.yaml", "--mesh", "2"],
-        cwd=tmp_path, capture_output=True, text=True, timeout=300,
-        env={"PYTHONPATH": str(REPO), "PATH": "/usr/bin:/bin"},
-    )
+    share = {k: v for k, v in os.environ.items() if k in ("OMP_NUM_THREADS", "MKL_NUM_THREADS")}
+    try:  # inside the per-test limit (conftest.py), so a hang shows the child's stderr
+        out = subprocess.run(
+            [sys.executable, "-m", "terra_gan_tpu_torch", "--mode", "human_guided_train",
+             "--config", "none.yaml", "--mesh", "2"],
+            cwd=tmp_path, capture_output=True, text=True, timeout=60,
+            env={"PYTHONPATH": str(REPO), "PATH": "/usr/bin:/bin", **share},
+        )
+    except subprocess.TimeoutExpired as e:
+        pytest.fail(f"{e}:\n{(e.stderr or b'').decode(errors='replace')[-3000:]}")
     assert out.returncode == 2, out.stderr
     assert "--mesh is not ported yet" in out.stderr
 

@@ -109,7 +109,7 @@ def request(url, payload=None, token=None, raw_body=None):
         None if payload is None else json.dumps(payload).encode())
     req = urllib.request.Request(url, data=data, headers=headers)
     try:
-        with urllib.request.urlopen(req) as resp:
+        with urllib.request.urlopen(req, timeout=30) as resp:
             return resp.status, resp.headers, resp.read()
     except urllib.error.HTTPError as e:
         return e.code, e.headers, e.read()
@@ -139,7 +139,8 @@ class TestMicroBatcher:
         for t in threads:
             t.start()
         for t in threads:
-            t.join()
+            t.join(30)
+        assert not any(t.is_alive() for t in threads)
         assert [float(r[0, 0, 0]) for r in results] == [i * 0.5 for i in range(6)]
         assert max(seen) > 1
         snap = mb.snapshot()

@@ -118,7 +118,8 @@ def test_span_is_the_null_context_off_the_profiled_thread():
         assert trace.span("tg.here") is not trace.span("tg.there")
         t = threading.Thread(target=lambda: seen.update(ctx=trace.span("tg.feed")))
         t.start()
-        t.join()
+        t.join(30)
+        assert not t.is_alive()
         with trace.span("tg.here"):
             pass
     assert seen["ctx"] is trace.span("tg.other")

@@ -240,10 +240,13 @@ def _measure() -> dict:
 
 @pytest.fixture(scope="module")
 def measured():
-    proc = subprocess.run(
-        [sys.executable, __file__], capture_output=True, text=True, timeout=600,
-        cwd=Path(__file__).resolve().parent.parent,
-    )
+    try:  # inside the per-test limit (conftest.py), so a hang shows the child's stderr
+        proc = subprocess.run(
+            [sys.executable, __file__], capture_output=True, text=True, timeout=270,
+            cwd=Path(__file__).resolve().parent.parent,
+        )
+    except subprocess.TimeoutExpired as e:
+        pytest.fail(f"{e}:\n{(e.stderr or b'').decode(errors='replace')[-3000:]}")
     assert proc.returncode == 0, proc.stderr[-3000:]
     return json.loads(proc.stdout.strip().splitlines()[-1])
 
