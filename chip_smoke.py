@@ -35,10 +35,19 @@ Phases, one line of figures each (any failure raises and exits nonzero):
      64^2, 128 + 384 channels, batches 16, 8 and 5 against its plain
      version in float64 (NRMSE 1e-6 for y_l and y_g, the plain version in
      TF32 failing it), bitwise over two calls, FFCLocal's gradients
-     against autograd through the plain version (rel L2 1e-5), its time
+     (its backward's kernels) against autograd through the plain version
+     in float64 (rel L2 1e-5; cuDNN's fp32 beside it), its time
      beside the plain version's (cuDNN's heuristic, its search off, as the
      port trained, and in a fresh process with the search on) and the
-     bound; four other shapes;
+     bound; four other shapes; then its backward's two kernels,
+     ffc_local_dgrad (the frame and border kernels, the forward's body
+     on the gradients, then the reflect fold) and ffc_local_wgrad (split
+     over the SMs, the splits added in a fixed order), at the same batches against
+     their plain versions in float64 (NRMSE 1e-6, the plain versions in
+     TF32 failing it), bitwise over two calls, their times beside the
+     plain path's (today's three convolution_backward calls and the pads'
+     backward, cuDNN's heuristic, and cuDNN searched as the yardstick
+     library_ms, each timed in a fresh process) and the bound;
   4. K1 upsample2x_fwd against its plain version at the 7 decoder
      shapes at batch 2 and 8, fp32 (torch's bits) and, at batch 2, bf16
      (1 ulp); per shape the device ms a call by CUDA graph replay of the
@@ -73,7 +82,8 @@ Phases, one line of figures each (any failure raises and exits nonzero):
      a fresh state, ms per step, samples/s and peak memory; then
      Big-LaMa (seeded G, D and VGG): one GAN step of make_train_step at
      batch 2 and evaluate on one PNG tile, each launching ffc_local 36
-     times (once a block FFC), counted from 0;
+     times (once a block FFC), counted from 0, and the GAN step
+     ffc_local_dgrad and ffc_local_wgrad 36 times each, evaluate none;
   9. train_grad: one batch of 8 through the G objective's forward and
      backward, once through the kernels (K1, K2's train variant) and once
      with torch's own upsample in K1's place (K2's train stages in both),
@@ -257,7 +267,18 @@ from terra_gan_tpu_torch.ops.cuda.upsample_kernel import (
     upsample2x_fwd_plain,
 )
 from terra_gan_tpu_torch.ops.cuda.tail_kernel import fused_decoder_tail, fused_decoder_tail_plain
-from terra_gan_tpu_torch.ops.cuda.ffc_kernel import ffc_local, ffc_local_plain
+from terra_gan_tpu_torch.ops.cuda.ffc_kernel import (
+    WGRAD_PIXELS,
+    WGRAD_TILE,
+    WGRAD_TILE_SUMS,
+    ffc_local,
+    ffc_local_backward_plain,
+    ffc_local_dgrad,
+    ffc_local_dgrad_plain,
+    ffc_local_plain,
+    ffc_local_wgrad,
+    ffc_local_wgrad_plain,
+)
 from terra_gan_tpu_torch.ops.resize import upsample2x_bilinear
 from terra_gan_tpu_torch.parallel.infer import BatchedInpainter
 from terra_gan_tpu_torch.losses import human_guided_loss
@@ -332,9 +353,15 @@ FFC_NRMSE_TOL = 1e-6
 # (batch, local, global channels, H, W) beside the block's
 FFC_OTHER_SHAPES = ((2, 8, 24, 13, 14), (2, 12, 20, 5, 70), (3, 132, 388, 32, 130),
                     (1, 4, 4, 2, 2))
-# FFCLocal's gradients against autograd through the plain version, rel L2:
-# the same cuDNN calls, the pad's backward summed in another order
+# FFCLocal's gradients against autograd through the plain version in
+# float64, rel L2 of the worst of the six: the backward's kernels, 3xTF32
+# products summed in fp32 over 4,608 taps (the inputs') and 65,536 pixels
+# (the weights'), in chunks added in IEEE order; cuDNN's fp32 beside them
 FFC_GRAD_TOL = 1e-5
+# the backward's kernels against their plain versions in float64, NRMSE
+# (csrc/ffc_conv.cu's note): 3xTF32 sums in fp32 read about 1e-7, the
+# plain versions in TF32 must exceed it
+FFC_BWD_NRMSE_TOL = 1e-6
 SERVE_REQUESTS, SERVE_BATCH_ITEMS, SERVE_MAX_BATCH = 16, 4, 8
 SERVE_SECRET = "chip-smoke-secret"
 # K1 is timed at the batch of the other kernels and at the profile's 8
@@ -582,6 +609,27 @@ def phase_build():
     require(len(ffc) == 2 and all(r.get("hmma", 0) > 0 and r.get("spill_bytes") == 0
                                   for r in ffc.values()),
             f"build: the FFC kernels are not 2 with HMMA and without spills: {ffc}")
+    # the backward's: dgrad and wgrad (each at W % 4 == 0 and not) with HMMA,
+    # the frame, border, fold and reduction kernels; none spills
+    bwd = {fn: r for fn, r in report.items()
+           if re.search(r"ffc_(dgrad|wgrad)(_frame|_border|_fold|_reduce)?_kernel", fn)}
+    smem, threads, tile_n, tile_c, pixels, sums = (ctypes.c_int() for _ in range(6))
+    check(lib.tg_ffc_wgrad_info(*(ctypes.byref(v) for v in (smem, threads, tile_n, tile_c, pixels,
+                                                            sums))), "tg_ffc_wgrad_info")
+    for fn, r in sorted(bwd.items()):
+        line("build", ffc_bwd_kernel=fn, registers=r.get("registers"),
+             spill_bytes=r.get("spill_bytes"), hmma=r.get("hmma"), hgmma=r.get("hgmma"))
+    line("build", ffc_wgrad_smem=smem.value, threads=threads.value,
+         job=f"{tile_n.value}x{tile_c.value}x9", pixels=pixels.value, sums=sums.value)
+    mma_bwd = [r for fn, r in bwd.items() if re.search(r"ffc_(dgrad|wgrad)_kernel", fn)]
+    require(len(bwd) == 8 and len(mma_bwd) == 4 and all(r.get("hmma", 0) > 0 for r in mma_bwd)
+            and all(r.get("spill_bytes") == 0 for r in bwd.values()),
+            f"build: the FFC backward's kernels are not 8 (4 with HMMA) without spills: {bwd}")
+    require((tile_n.value, tile_c.value) == WGRAD_TILE and pixels.value == WGRAD_PIXELS
+            and sums.value == WGRAD_TILE_SUMS,
+            f"build: the wgrad kernel's tile {tile_n.value}x{tile_c.value}, {pixels.value} "
+            f"pixels, {sums.value} sums; the wrapper's {WGRAD_TILE}, {WGRAD_PIXELS}, "
+            f"{WGRAD_TILE_SUMS}")
     # P1's and P2's 6 lane counts (one kernel for both) and P4, each in two variants
     p2p4 = {fn: r for fn, r in report.items()
             if "matvec_dot_kernel" in fn or "mask_broadcast_kernel" in fn}
@@ -851,32 +899,49 @@ def ffc_flops(batch: int) -> float:
     return 2.0 * batch * FFC_SIDE**2 * 9 * (cl * (cl + cg) + cg * cl)
 
 
-def ffc_searched_child() -> dict:
-    """{batch: ms} of the plain version at FFC_BATCHES with cuDNN's search
-    on, fp32, TF32 off; run in a fresh process (``ffc_searched_ms``)."""
+def ffc_bwd_inputs(b: int, gen, dev):
+    """A block FFC's seeded inputs and weights (``ffc_inputs``) and the
+    gradients of y_l and y_g."""
+    args = ffc_inputs(b, gen, dev)
+    return args, [torch.randn((b, c, FFC_SIDE, FFC_SIDE), generator=gen).to(dev)
+                  for c in (FFC_LOCAL, FFC_GLOBAL)]
+
+
+def ffc_library_child(search: bool) -> dict:
+    """{"forward": {batch: ms}, "backward": {batch: ms}} of the plain
+    version (``ffc_local_plain``) and the plain backward
+    (``ffc_local_backward_plain``: three convolution_backward calls and the
+    pads' backward) at FFC_BATCHES, cuDNN's search on or off, fp32, TF32
+    off; run in a fresh process (``ffc_library_ms``)."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.benchmark = True
+    torch.backends.cudnn.benchmark = search
     gen = torch.Generator().manual_seed(SEED + 60)
     dev = torch.device("cuda", 0)
-    out = {}
+    out = {"forward": {}, "backward": {}}
     with torch.no_grad():
         for batch in FFC_BATCHES:
-            args = ffc_inputs(batch, gen, dev)
-            out[batch] = time_ms(lambda: ffc_local_plain(*args), 20)
+            args, grads = ffc_bwd_inputs(batch, gen, dev)
+            out["forward"][batch] = time_ms(lambda: ffc_local_plain(*args), 20)
+            out["backward"][batch] = time_ms(
+                lambda: ffc_local_backward_plain(args[0], args[1], *args[3:], *grads), 20)
+            del args, grads
     return out
 
 
-def ffc_searched_ms() -> dict:
-    """``ffc_searched_child`` in a process of its own: torch keeps the first
+def ffc_library_ms(search: bool) -> dict:
+    """``ffc_library_child`` in a process of its own: torch keeps the first
     cuDNN algorithm it finds for a shape, searched or not, so in this one
-    the heuristic's would stand."""
-    code = "import json, chip_smoke as cs; print(json.dumps(cs.ffc_searched_child()))"
+    an earlier phase's choice would stand."""
+    code = ("import json, chip_smoke as cs; "
+            f"print(json.dumps(cs.ffc_library_child({search})))")
     res = subprocess.run([sys.executable, "-c", code], cwd=Path(__file__).resolve().parent,
                          capture_output=True, text=True, timeout=600)
     require(res.returncode == 0,
-            f"ffc: the searched cuDNN timing exited {res.returncode}: {res.stderr[-2000:]}")
-    return {int(k): v for k, v in json.loads(res.stdout.strip().splitlines()[-1]).items()}
+            f"ffc: the cuDNN timing (search {search}) exited {res.returncode}: "
+            f"{res.stderr[-2000:]}")
+    got = json.loads(res.stdout.strip().splitlines()[-1])
+    return {k: {int(b): ms for b, ms in v.items()} for k, v in got.items()}
 
 
 def phase_ffc(dev):
@@ -889,7 +954,7 @@ def phase_ffc(dev):
     included), the pack alone, and the plain version with cuDNN's search
     off (as the port trained) and, timed in a fresh process, on, beside
     the bound; then other shapes."""
-    searched = ffc_searched_ms()
+    searched = ffc_library_ms(True)["forward"]
     gen = torch.Generator().manual_seed(SEED + 60)
     flags = torch.backends.cudnn.benchmark
     figures = {}
@@ -919,21 +984,27 @@ def phase_ffc(dev):
         with torch.no_grad():
             t_k = time_ms(lambda: ffc_local(*args), 20)
             t_pack = time_ms(lambda: pack_pconv_weights(args[3:]), 20)
-        # gradients: FFCLocal against autograd through the plain version
+        # gradients: FFCLocal against autograd through the plain version in
+        # float64, and cuDNN's fp32 (autograd through the plain version) beside it
         leaves = [a.detach().requires_grad_() for a in args]
         outs = ffc_local(*leaves)
         grads_out = [torch.randn(o.shape, generator=gen).to(dev) for o in outs]
         got_g = torch.autograd.grad(outs, leaves, grads_out)
         del outs
         leaves_p = [a.detach().requires_grad_() for a in args]
-        want_g = torch.autograd.grad(ffc_local_plain(*leaves_p), leaves_p, grads_out)
+        plain_g = torch.autograd.grad(ffc_local_plain(*leaves_p), leaves_p, grads_out)
+        leaves_64 = [a.detach().double().requires_grad_() for a in args]
+        want_g = torch.autograd.grad(ffc_local_plain(*leaves_64), leaves_64,
+                                     [g.double() for g in grads_out])
         grad_err = max(rel_l2(g, w) for g, w in zip(got_g, want_g))
-        del leaves, leaves_p, got_g, want_g, grads_out
+        plain_grad_err = max(rel_l2(g, w) for g, w in zip(plain_g, want_g))
+        del leaves, leaves_p, leaves_64, got_g, plain_g, want_g, grads_out
         # the inputs and weights read once, y_l (x_l's size) and y_g (s's) written once
         b = bound(ffc_flops(batch), nbytes(*args, args[0], args[2]), TF32X3_FLOPS)
         figures[f"batch{batch}"] = dict(ms=t_k, pack_ms=t_pack,
                                         plain_ms=t_p, searched_ms=searched[batch], **b,
                                         tflops=ffc_flops(batch) / t_k / 1e9, grad_rel_l2=grad_err,
+                                        plain_grad_rel_l2=plain_grad_err,
                                         **{f"{k}_{m}": v for k, e in errs.items()
                                            for m, v in e.items()})
         line("ffc", batch=batch, shape=f"{batch}x({FFC_LOCAL}+{FFC_GLOBAL})x{FFC_SIDE}x{FFC_SIDE}",
@@ -941,7 +1012,7 @@ def phase_ffc(dev):
              plain_ms=f"{t_p:.4f}", searched_ms=f"{searched[batch]:.4f}",
              bound_ms=f"{b['bound_ms']:.4f}",
              of_bound=f"{100 * b['bound_ms'] / t_k:.1f}%", bitwise=bitwise,
-             grad_rel_l2=f"{grad_err:.3e}",
+             grad_rel_l2=f"{grad_err:.3e}", plain_grad_rel_l2=f"{plain_grad_err:.3e}",
              **{f"{k}_{m}": f"{v:.3e}" for k, e in errs.items() for m, v in e.items()})
         for name, e in errs.items():
             require(e["nrmse"] <= FFC_NRMSE_TOL,
@@ -961,6 +1032,70 @@ def phase_ffc(dev):
         err = max(nrmse(g, v) for g, v in zip(got, want))
         line("ffc", shape=f"{b}x({cl}+{cg})x{h}x{w}", nrmse=f"{err:.3e}")
         require(err <= FFC_NRMSE_TOL, f"ffc at {b}x({cl}+{cg})x{h}x{w}: NRMSE {err}")
+    return figures
+
+
+def phase_ffc_backward(dev):
+    """``ffc_local_dgrad`` and ``ffc_local_wgrad`` (csrc/ffc_conv.cu), the
+    backward of ``ffc_local``, at a block FFC's shapes at each of
+    FFC_BATCHES: each output's NRMSE against its plain version in float64
+    (the plain version in TF32 beside it, which must fail the gate),
+    bitwise equal over two calls; the device ms a call of each (the dgrad
+    with its pack and border kernel, the wgrad with its reduction) and of
+    both, beside the plain backward's (``ffc_local_backward_plain``, as the
+    port trained before: cuDNN's heuristic, its search off) and cuDNN's
+    searched backward as the yardstick (``library_ms``), each timed in a
+    fresh process, and the bound (each kernel the forward's operations at
+    the 3xTF32 rate)."""
+    plain = ffc_library_ms(False)["backward"]
+    searched = ffc_library_ms(True)["backward"]
+    gen = torch.Generator().manual_seed(SEED + 63)
+    figures = {"ffc_local_dgrad": {}, "ffc_local_wgrad": {}}
+    for batch in FFC_BATCHES:
+        args, grads = ffc_bwd_inputs(batch, gen, dev)
+        x_l, x_g, ws = args[0], args[1], args[3:]
+        dgrad = lambda: ffc_local_dgrad(*grads, *ws)  # noqa: E731
+        wgrad = lambda: ffc_local_wgrad(x_l, x_g, *grads)  # noqa: E731
+        errs, bitwise = {}, {}
+        with torch.no_grad():
+            for name, run, plain_fn, plain_args, outs in (
+                    ("dgrad", dgrad, ffc_local_dgrad_plain, grads + ws, ("x_l", "x_g")),
+                    ("wgrad", wgrad, ffc_local_wgrad_plain, [x_l, x_g] + grads,
+                     ("w_l2l", "w_g2l", "w_l2g"))):
+                got, again = run(), run()
+                bitwise[name] = all(torch.equal(a, b) for a, b in zip(got, again))
+                want = plain_fn(*(a.double() for a in plain_args))
+                try:
+                    torch.backends.cudnn.allow_tf32 = True
+                    torch.backends.cuda.matmul.allow_tf32 = True
+                    tf32 = plain_fn(*plain_args)
+                finally:
+                    torch.backends.cudnn.allow_tf32 = False
+                    torch.backends.cuda.matmul.allow_tf32 = False
+                errs[name] = {o: dict(nrmse=nrmse(g, w), tf32_nrmse=nrmse(f, w))
+                              for o, g, w, f in zip(outs, got, want, tf32)}
+                del got, again, want, tf32
+            t_d, t_w = time_ms(dgrad, 20), time_ms(wgrad, 20)
+            t_both = time_ms(lambda: (dgrad(), wgrad()), 20)
+        b_d = bound(ffc_flops(batch), nbytes(*grads, *ws, x_l, x_g), TF32X3_FLOPS)
+        b_w = bound(ffc_flops(batch), nbytes(x_l, x_g, *grads, *ws), TF32X3_FLOPS)
+        for name, t, b in (("dgrad", t_d, b_d), ("wgrad", t_w, b_w)):
+            figures[f"ffc_local_{name}"][f"batch{batch}"] = dict(
+                ms=t, backward_ms=t_both, plain_ms=plain[batch], library_ms=searched[batch], **b,
+                tflops=ffc_flops(batch) / t / 1e9, bitwise=bitwise[name],
+                **{f"{o}_{m}": v for o, e in errs[name].items() for m, v in e.items()})
+            line("ffc_bwd", kernel=name, batch=batch, ms=f"{t:.4f}",
+                 backward_ms=f"{t_both:.4f}", plain_backward_ms=f"{plain[batch]:.4f}",
+                 library_backward_ms=f"{searched[batch]:.4f}", bound_ms=f"{b['bound_ms']:.4f}",
+                 of_bound=f"{100 * b['bound_ms'] / t:.1f}%", bitwise=bitwise[name],
+                 **{f"{o}_{m}": f"{v:.3e}" for o, e in errs[name].items() for m, v in e.items()})
+            for o, e in errs[name].items():
+                require(e["nrmse"] <= FFC_BWD_NRMSE_TOL,
+                        f"ffc_bwd {name} {o} at batch {batch}: NRMSE {e['nrmse']} against float64")
+                require(e["tf32_nrmse"] > FFC_BWD_NRMSE_TOL,
+                        f"ffc_bwd {name} {o}: TF32 reads {e['tf32_nrmse']}, within the gate")
+            require(bitwise[name], f"ffc_bwd {name} at batch {batch}: two calls differ")
+        del args, grads
     return figures
 
 
@@ -1438,31 +1573,38 @@ def phase_lama(dev):
     vgg = init_vgg(gen, dev)
     blocks = state.generator.sizes["n_blocks"]
     imgs, masks = dsm_tiles(2, SIZE, SEED + 62)
-    ffc_local.launches = 0
+    ffc_local.launches = ffc_local_dgrad.launches = ffc_local_wgrad.launches = 0
     metrics = make_train_step(LoopConfig(batch_size=2).loss_config())(
         state, device_batch(imgs, masks, dev), vgg)
     train_launches = ffc_local.launches
+    train_bwd = (ffc_local_dgrad.launches, ffc_local_wgrad.launches)
     state.generator.eval()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_lama_") as tmp:
         root = Path(tmp)
         Image.fromarray(imgs[0, ..., 0]).save(root / "t000.png")
         Image.fromarray(masks[0, ..., 0]).save(root / "t000_mask_resized.png")
-        ffc_local.launches = 0
+        ffc_local.launches = ffc_local_dgrad.launches = ffc_local_wgrad.launches = 0
         out = evaluate(root / "t000.png", root / "t000_mask_resized.png", state.generator,
                        root / "out.png")
         eval_launches = ffc_local.launches
+        eval_bwd = (ffc_local_dgrad.launches, ffc_local_wgrad.launches)
         size = Image.open(out).size
     losses = [metrics[k].item() for k in ("g_loss", "d_loss")]
     line("lama", train_step="gan batch 2", g_loss=f"{losses[0]:.5f}", d_loss=f"{losses[1]:.5f}",
          train_step_launches=train_launches, evaluate_launches=eval_launches,
+         train_step_dgrad_wgrad=train_bwd, evaluate_dgrad_wgrad=eval_bwd,
          block_ffcs=2 * blocks, written=size)
     require(all(math.isfinite(v) for v in losses), f"lama: non-finite losses {losses}")
     require(train_launches == eval_launches == 2 * blocks,
             f"lama: ffc_local launched {train_launches} times in a GAN step and {eval_launches} "
             f"in evaluate, not {2 * blocks} (one forward each)")
+    require(train_bwd == (2 * blocks, 2 * blocks) and eval_bwd == (0, 0),
+            f"lama: the FFC backward's dgrad and wgrad launched {train_bwd} times in a GAN "
+            f"step and {eval_bwd} in evaluate, not {2 * blocks} each and none")
     require(size == (OUTPUT_SIZE, OUTPUT_SIZE), f"lama: evaluate wrote {size}")
     del state, vgg
-    return {"ffc_local": train_launches + eval_launches}
+    return {"ffc_local": train_launches + eval_launches, "ffc_local_dgrad": train_bwd[0],
+            "ffc_local_wgrad": train_bwd[1]}
 
 
 def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -2820,7 +2962,7 @@ def main() -> None:
                "fused_pconv_train": phase_k2_train(model, dev),
                "upsample2x_fwd": phase_k1(model, dev),
                "upsample2x_bwd": phase_k1_bwd(model, dev), "pack_pconv_weights": phase_pack(model),
-               "ffc_local": phase_ffc(dev)}
+               "ffc_local": phase_ffc(dev), **phase_ffc_backward(dev)}
     counters = (fused_pconv_eval, upsample2x_fwd, upsample2x_bwd, fused_decoder_tail,
                 pack_pconv_weights, fused_pconv_train)
     runs = [phase_slice(model, dev, counters)]
@@ -2839,7 +2981,8 @@ def main() -> None:
     runs.append(phase_cli(dev, counters + PROBES))
     runs.append(phase_train_mode(dev, counters + PROBES, card))
     runs.append(phase_human_guided(dev, counters + PROBES, card))
-    launches = dict.fromkeys(read_counts(counters + PROBES + (ffc_local,)), 0)
+    ffc = (ffc_local, ffc_local_dgrad, ffc_local_wgrad)
+    launches = dict.fromkeys(read_counts(counters + PROBES + ffc), 0)
     for run in runs:
         for name, n in run.items():
             launches[name] += n
@@ -2856,20 +2999,22 @@ def main() -> None:
         "pack_pconv_weights": ("pconv_eval.cu", "terra_gan_tpu/ops/pallas/pconv_kernel.py:297"),
         # Big-LaMa's block FFCs: the JAX package has no Big-LaMa
         "ffc_local": ("ffc_conv.cu", "none"),
+        "ffc_local_dgrad": ("ffc_conv.cu", "none"),
+        "ffc_local_wgrad": ("ffc_conv.cu", "none"),
         **{name: ("probes.cu", f"scripts/probe_mosaic.py:{ln}")
            for name, ln in PROBE_REPLACES.items()},
     }
     require(all(launches[name] > 0 for name in sources),
             f"a kernel of the main paths was never launched there: {launches}")
     peaks = {"fused_pconv_eval": "k2", "fused_pconv_train": "k2", "fused_decoder_tail": "k3",
-             "ffc_local": "ffc"}
+             "ffc_local": "ffc", "ffc_local_dgrad": "ffc", "ffc_local_wgrad": "ffc"}
     kernels = [
         {"name": name, "route": "cuda", "source": f"terra_gan_tpu_torch/csrc/{src}",
          "replaces": replaces, "launches": launches[name], **figures[name],
          "peak": PEAKS[peaks.get(name, "fp32")]}
         for name, (src, replaces) in sources.items()
     ]
-    wrappers = {fn.__name__: fn for fn in counters + PROBES + (ffc_local,)}
+    wrappers = {fn.__name__: fn for fn in counters + PROBES + ffc}
     for k in kernels:  # K2's, P2's and P4's launches by variant
         wrapper = wrappers[k["name"]]
         if hasattr(wrapper, "variants"):

@@ -109,10 +109,17 @@ cuDNN's benchmark off so that every turn runs the same convolutions; the
 seconds of each epoch's train loop, loader included, from train()'s
 history, the first epoch a warm-up).
 
+The sass leg (with --parent DIR) builds the parent checkout's library
+in its own tree (a process started there) and holds the SASS of K2's
+(``pconv_``, ``pack_tf32``), K3's (``decoder_tail``) and the FFC
+forward's (``ffc_local_kernel``) functions, instruction by instruction
+(``cuobjdump -sass``: address, instruction, encoding), to this tree's:
+a kernel whose source did not change compiles to the same code.
+
 It prints one line per figure and writes all of them as JSON to --out
 (and the traces beside it); --legs picks some of the legs (inference,
-stage, tail, serve, train, probes, k1, turns, epoch; all but turns and
-epoch by default).
+stage, tail, serve, train, probes, k1, turns, epoch, sass; all but
+turns, epoch and sass by default).
 Without CUDA it exits nonzero.
 """
 
@@ -123,6 +130,7 @@ import ctypes
 import itertools
 import json
 import os
+import re
 import subprocess
 import sys
 import threading
@@ -144,7 +152,9 @@ from chip_smoke import (
     unfused_forward, upsample_shapes,
 )
 from terra_gan_tpu_torch.cli.probe_cuda import probe_inputs
-from terra_gan_tpu_torch.ops.cuda._build import BUILD_ROOT, NVCC_FLAGS, check, find_nvcc
+from terra_gan_tpu_torch.ops.cuda._build import (
+    BUILD_ROOT, NVCC_FLAGS, build_info, check, find_nvcc,
+)
 from terra_gan_tpu_torch.ops.cuda.probe_kernels import (
     CONCAT_ROWS, CONCAT_SMEM_BUDGET, CONCAT_THREADS, PLAIN, VARIANTS, concat_busiest_sm_bytes,
     concat_smem_bytes, empty_launch, plan_probe, probe_lane_concat_dot, probe_lane_reduce,
@@ -182,8 +192,10 @@ STAGE_BATCHES = (1, 8)
 ENC1_BATCHES = (1, 2, 8, 32)
 K1_BATCHES = (1, 2, 8, 32)
 SWEEP_BATCHES = (8,)  # where the k1 leg times every plan the planner could take
-LEGS = ("inference", "stage", "tail", "serve", "train", "probes", "k1", "turns", "epoch")
-DEFAULT_LEGS = LEGS[:-2]  # the turns and epoch legs need --parent
+LEGS = ("inference", "stage", "tail", "serve", "train", "probes", "k1", "turns", "epoch", "sass")
+DEFAULT_LEGS = LEGS[:-3]  # the turns, epoch and sass legs need --parent
+# the functions the sass leg holds to the parent's: K2, K3 and the FFC forward
+SASS_KEPT = re.compile(r"pconv_|pack_tf32|decoder_tail|ffc_local_kernel")
 TURN_BATCHES = (1, 8, 32)
 TRAIN_BATCHES = (8, 16, 32)
 TRAIN_STEPS = 5
@@ -942,20 +954,60 @@ def epoch_turns(parent_root: Path):
     return rows
 
 
+def sass_functions(lib_path) -> dict:
+    """{mangled name, its anonymous namespace's hashes left out: its
+    instruction lines} of a built library's SASS (cuobjdump -sass), each
+    line address, instruction and encoding."""
+    cuobjdump = Path(find_nvcc()).with_name("cuobjdump")
+    text = subprocess.run([str(cuobjdump), "-sass", str(lib_path)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    funcs, fn = {}, None
+    for ln in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", ln)
+        if m:  # the anonymous namespace's hashes differ from build to build
+            fn = re.sub(r"_GLOBAL__N__[0-9a-f]{8}_\d+_(\w+?_cu)_[0-9a-f]{8}", r"_GLOBAL__N__\1",
+                        m.group(1))
+            funcs[fn] = []
+        elif fn is not None and re.match(r"\s*/\*[0-9a-f]{4,}\*/", ln):
+            funcs[fn].append(" ".join(ln.split()))
+    return funcs
+
+
+def sass_turns(parent: Path) -> dict:
+    """SASS_KEPT's functions of the parent's library against this tree's."""
+    code = ("from terra_gan_tpu_torch.ops.cuda._build import build_info, load_library; "
+            "load_library(); print(build_info()['path'])")
+    res = subprocess.run([sys.executable, "-c", code], cwd=parent, capture_output=True,
+                         text=True, timeout=900)
+    if res.returncode != 0:
+        raise RuntimeError(f"sass: the parent's build exited {res.returncode}: {res.stderr[-2000:]}")
+    theirs = sass_functions(res.stdout.strip().splitlines()[-1])
+    mine = sass_functions(build_info()["path"])
+    names = sorted(fn for fn in theirs if SASS_KEPT.search(fn))
+    same = {fn: mine.get(fn) == theirs[fn] for fn in names}
+    for fn in names:
+        line("sass", function=fn, instructions=len(theirs[fn]), identical=same[fn])
+    line("sass", functions=len(names), identical=sum(same.values()),
+         differ=[fn for fn, ok in same.items() if not ok])
+    if not names or not all(same.values()):
+        raise RuntimeError(f"sass: functions differ from the parent's: {same}")
+    return {"functions": same, "instructions": {fn: len(theirs[fn]) for fn in names}}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", type=Path, default=Path("chiprun_out/profile_slice.json"))
     ap.add_argument("--legs", default=",".join(DEFAULT_LEGS),
                     help=f"comma-separated legs to run, of {','.join(LEGS)}")
     ap.add_argument("--parent", type=Path, default=None,
-                    help="stage, probes, k1, turns and epoch legs: a parent checkout whose "
+                    help="stage, probes, k1, turns, epoch and sass legs: a parent checkout whose "
                          "enc1, P5, K1, eval forward and train() run in turns")
     args = ap.parse_args()
     legs = set(args.legs.split(","))
     if not legs <= set(LEGS):
         ap.error(f"--legs: unknown {sorted(legs - set(LEGS))}")
-    if legs & {"turns", "epoch"} and args.parent is None:
-        ap.error("--legs turns and epoch need --parent")
+    if legs & {"turns", "epoch", "sass"} and args.parent is None:
+        ap.error("--legs turns, epoch and sass need --parent")
     kind, smi = phase_env()
     phase_build()
     dev = torch.device("cuda", 0)
@@ -990,6 +1042,8 @@ def main() -> None:
         result["turns"] = forward_turns(args.parent)
     if "epoch" in legs:
         result["epoch"] = epoch_turns(args.parent)
+    if "sass" in legs:
+        result["sass"] = sass_turns(args.parent)
     args.out.write_text(json.dumps(result, indent=1))
     print(json.dumps({"written": str(args.out)}), flush=True)
 

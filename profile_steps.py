@@ -33,12 +33,18 @@ off), and prints one JSON object: the cell's end-to-end metrics and
     (``fused_pconv_train.launches`` and ``.variants``): 14 a forward;
     ``ffc_local_launches``, Big-LaMa's block FFCs run on their kernel
     (``ffc_local.launches``, one launch an FFC): 36 a forward;
+    ``ffc_local_dgrad_launches`` and ``ffc_local_wgrad_launches``, their
+    backward's two kernels (``ffc_local_dgrad.launches`` and
+    ``ffc_local_wgrad.launches``, one call an FFC each): 36 a step;
     with Big-LaMa as G, ``spectral_calls`` and ``spectral_elements``
     (``SpectralTransform.calls`` and ``.elements``: 36 transforms a
-    forward) and ``lama_forward_ms``, the device ms a step launched in
+    forward), ``lama_forward_ms``, the device ms a step launched in
     each of the generator's ranges (``tg.lama_down``, ``tg.ffc_local``,
     ``tg.ffc_spectral``, ``tg.lama_up``, and ``tg.g_forward`` itself for
-    the rest: the blocks' BatchNorm, ReLU and residual sums);
+    the rest: the blocks' BatchNorm, ReLU and residual sums), and
+    ``lama_backward_ms``, the same of ``tg.ffc_local_bwd`` (the block
+    FFCs' backward, opened on autograd's device thread) and of
+    ``tg.g_backward`` itself for the rest of the step's backward;
   * ``host_calls``: the host's CUDA runtime and driver calls a step, count
     and ms by name, and the span each blocking one (malloc, free,
     synchronise, copy) was made in;
@@ -73,6 +79,8 @@ from torch_bench.run import checkout_caches  # noqa: E402
 
 # the device's time in Big-LaMa's forward, by range (models/lama.py)
 LAMA_RANGES = ("tg.lama_down", "tg.ffc_local", "tg.ffc_spectral", "tg.lama_up", "tg.g_forward")
+# and in the step's backward (ops/cuda/ffc_kernel.py's FFCLocal.backward)
+LAMA_BWD_RANGES = ("tg.ffc_local_bwd", "tg.g_backward")
 # calls that can hold the host until the device drains
 BLOCKING = ("cudaMalloc", "cudaFree", "cudaStreamSynchronize", "cudaDeviceSynchronize",
             "cudaEventSynchronize", "cudaMemcpy", "cudaMemcpyAsync")
@@ -100,13 +108,16 @@ def host_calls(calls, marks, window: Tuple[float, float], steps: int) -> dict:
 def counters(device: torch.device) -> Dict[str, float]:
     from terra_gan_tpu_torch.data.dataset import BatchLoader
     from terra_gan_tpu_torch.models.lama import SpectralTransform
-    from terra_gan_tpu_torch.ops.cuda.ffc_kernel import ffc_local
+    from terra_gan_tpu_torch.ops.cuda.ffc_kernel import ffc_local, ffc_local_dgrad, ffc_local_wgrad
     from terra_gan_tpu_torch.ops.cuda.pconv_kernel import fused_pconv_train
 
     out = {"feed_batches": BatchLoader.batches, "feed_ready": BatchLoader.ready,
            "feed_make_s": BatchLoader.make_s, "k2_train_stages": fused_pconv_train.launches,
            **{f"k2_train.{v}": n for v, n in fused_pconv_train.variants.items()},
-           "ffc_local_launches": ffc_local.launches, "spectral_calls": SpectralTransform.calls,
+           "ffc_local_launches": ffc_local.launches,
+           "ffc_local_dgrad_launches": ffc_local_dgrad.launches,
+           "ffc_local_wgrad_launches": ffc_local_wgrad.launches,
+           "spectral_calls": SpectralTransform.calls,
            "spectral_elements": SpectralTransform.elements}
     if device.type == "cuda":
         stats = torch.cuda.memory_stats(device)
@@ -166,13 +177,16 @@ def per_step(counts: dict, trace: PhaseTrace) -> dict:
         out["k2_train_stages"] = counts["k2_train_stages"] / steps
         out["k2_train_launches"] = {k.split(".", 1)[1]: n / steps for k, n in counts.items()
                                     if k.startswith("k2_train.")}
-    if "ffc_local_launches" in counts:
-        out["ffc_local_launches"] = counts["ffc_local_launches"] / steps
+    for k in ("ffc_local_launches", "ffc_local_dgrad_launches", "ffc_local_wgrad_launches"):
+        if k in counts:
+            out[k] = counts[k] / steps
     if counts.get("spectral_calls"):
         out["spectral_calls"] = counts["spectral_calls"] / steps
         out["spectral_elements"] = counts["spectral_elements"] / steps
         out["lama_forward_ms"] = {k: 1e3 * trace.device_s_by_span.get(k, 0.0) / steps
                                   for k in LAMA_RANGES}
+        out["lama_backward_ms"] = {k: 1e3 * trace.device_s_by_span.get(k, 0.0) / steps
+                                   for k in LAMA_BWD_RANGES}
     return out
 
 

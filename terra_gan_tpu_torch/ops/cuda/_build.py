@@ -135,6 +135,19 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.tg_ffc_local_f32.argtypes = [_P] * 11 + [_I] * 7 + [_P]
     lib.tg_ffc_local_info.restype = _I
     lib.tg_ffc_local_info.argtypes = [_P] * 5
+    # g_l, g_g, the three weights, their rotations' two planes, the scratch
+    # (the border, g's frame), grad x_l, grad x_g; B, H, W, Ca, Cb, Nl, Ng,
+    # need and the stream
+    lib.tg_ffc_dgrad_f32.restype = _I
+    lib.tg_ffc_dgrad_f32.argtypes = [_P] * 14 + [_I] * 8 + [_P]
+    lib.tg_ffc_dgrad_scratch.restype = ctypes.c_longlong  # B, H, W, Ca, Cb, Nl, Ng
+    lib.tg_ffc_dgrad_scratch.argtypes = [_I] * 7
+    # x_l, x_g, g_l, g_g, the partial sums, the three weights' gradients;
+    # B, H, W, Ca, Cb, Nl, Ng, need, splits and the stream
+    lib.tg_ffc_wgrad_f32.restype = _I
+    lib.tg_ffc_wgrad_f32.argtypes = [_P] * 8 + [_I] * 9 + [_P]
+    lib.tg_ffc_wgrad_info.restype = _I
+    lib.tg_ffc_wgrad_info.argtypes = [_P] * 6
     # P1, P2 and P4 take n, c and the plan's variant, grid and block; P3
     # m, c, n and the plan's variant, grid, block, rows and K chunk; P5
     # rows, row elements and the plan's variant, grid and block

@@ -38,7 +38,15 @@ from terra_gan_tpu_torch.ops.cuda.upsample_kernel import (
     upsample2x_fwd_plain,
 )
 from terra_gan_tpu_torch.ops.cuda.tail_kernel import fused_decoder_tail, fused_decoder_tail_plain
-from terra_gan_tpu_torch.ops.cuda.ffc_kernel import ffc_local, ffc_local_kernel, ffc_local_plain
+from terra_gan_tpu_torch.ops.cuda.ffc_kernel import (
+    ffc_local,
+    ffc_local_dgrad,
+    ffc_local_dgrad_plain,
+    ffc_local_kernel,
+    ffc_local_plain,
+    ffc_local_wgrad,
+    ffc_local_wgrad_plain,
+)
 from terra_gan_tpu_torch.models.lama import FFCResNetGenerator
 from terra_gan_tpu_torch.ops.resize import upsample2x_bilinear
 from terra_gan_tpu_torch.cli import doctor
@@ -1036,12 +1044,81 @@ def test_ffc_local_gradients_match_autograd_through_plain(card):
         assert float((a - c).norm() / c.norm()) < 1e-5
 
 
+# the backward kernels against their plain versions in float64 (the bound
+# of csrc/ffc_conv.cu's note): 3xTF32 sums in fp32 read about 1e-7
+FFC_BWD_NRMSE_TOL = 1e-6
+FFC_BWD_SHAPES = [(16, 128, 384, 64, 64), (8, 128, 384, 64, 64), (5, 128, 384, 64, 64),
+                  (2, 8, 24, 13, 14), (1, 12, 20, 5, 70), (1, 4, 4, 2, 2), (2, 132, 388, 3, 3)]
+
+
+def ffc_bwd_args(b, cl, cg, h, w, dev):
+    args = ffc_args(b + cl + h, b, cl, cg, h, w, dev)
+    g = torch.Generator().manual_seed(b * h + w)
+    grads = [torch.randn((b, c, h, w), generator=g).to(dev) for c in (cl, cg)]
+    return args, grads
+
+
+@pytest.mark.parametrize("b,cl,cg,h,w", FFC_BWD_SHAPES)
+def test_ffc_local_dgrad_matches_plain(card, b, cl, cg, h, w):
+    """The border kernel, then the main kernel with the fold, against the
+    plain version in float64; one count a call; bitwise over two calls."""
+    args, grads = ffc_bwd_args(b, cl, cg, h, w, card)
+    launches = ffc_local_dgrad.launches
+    got = ffc_local_dgrad(*grads, *args[3:])
+    assert ffc_local_dgrad.launches == launches + 1
+    want = ffc_local_dgrad_plain(*(a.double() for a in grads + args[3:]))
+    errs = [nrmse(a.cpu(), c.cpu()) for a, c in zip(got, want)]
+    assert max(errs) < FFC_BWD_NRMSE_TOL, errs
+    assert all(torch.equal(a, c) for a, c in zip(got, ffc_local_dgrad(*grads, *args[3:])))
+    only_g = ffc_local_dgrad(*grads, *args[3:], need=(False, True))
+    assert only_g[0] is None and torch.equal(only_g[1], got[1])
+
+
+@pytest.mark.parametrize("b,cl,cg,h,w", FFC_BWD_SHAPES)
+def test_ffc_local_wgrad_matches_plain_and_repeats(card, b, cl, cg, h, w):
+    """plan_wgrad's splits, then their reduction in a fixed order, against
+    the plain version in float64; two calls equal bit for bit."""
+    args, grads = ffc_bwd_args(b, cl, cg, h, w, card)
+    launches = ffc_local_wgrad.launches
+    got = ffc_local_wgrad(args[0], args[1], *grads)
+    assert ffc_local_wgrad.launches == launches + 1
+    want = ffc_local_wgrad_plain(*(a.double() for a in args[:2] + grads))
+    errs = [nrmse(a.cpu(), c.cpu()) for a, c in zip(got, want)]
+    assert max(errs) < FFC_BWD_NRMSE_TOL, errs
+    assert all(torch.equal(a, c) for a, c in zip(got, ffc_local_wgrad(args[0], args[1], *grads)))
+    # fewer jobs, other splits: the same gradient within the bound
+    some = ffc_local_wgrad(args[0], args[1], *grads, need=(False, True, False))
+    assert some[0] is None and some[2] is None
+    assert nrmse(some[1].cpu(), want[1].cpu()) < FFC_BWD_NRMSE_TOL
+
+
+def test_ffc_local_backward_counts_its_kernels(card):
+    """One dgrad and one wgrad a backward; none where no gradient is asked
+    for, and none for the gradient of s alone."""
+    args = ffc_args(3, 2, 8, 24, 8, 8, card)
+    counts = lambda: (ffc_local_dgrad.launches, ffc_local_wgrad.launches)  # noqa: E731
+    before = counts()
+    leaves = [a.clone().requires_grad_() for a in args]
+    torch.autograd.grad(ffc_local(*leaves), leaves, [torch.ones_like(leaves[0]),
+                                                     torch.ones_like(leaves[2])])
+    assert counts() == (before[0] + 1, before[1] + 1)
+    with torch.no_grad():
+        ffc_local(*args)
+    only_s = [a.clone().requires_grad_(i == 2) for i, a in enumerate(args)]
+    y_l, y_g = ffc_local(*only_s)
+    y_g.sum().backward()
+    assert counts() == (before[0] + 1, before[1] + 1)
+    assert torch.equal(only_s[2].grad, torch.ones_like(only_s[2]))
+
+
 def test_lama_block_ffcs_launch_the_kernel_once_a_forward(card):
     G = FFCResNetGenerator(ngf=8, n_downsampling=3, n_blocks=2).to(card).train()
     x = torch.rand((2, 64, 64, 1), device=card)
     m = (torch.rand((2, 64, 64, 1), device=card) > 0.3).float()
     launches = ffc_local.launches
+    bwd = (ffc_local_dgrad.launches, ffc_local_wgrad.launches)
     G(x * m, m).mean().backward()
     assert ffc_local.launches - launches == 4  # 2 a block
+    assert (ffc_local_dgrad.launches - bwd[0], ffc_local_wgrad.launches - bwd[1]) == (4, 4)
     with pytest.raises(ValueError, match="multiples of 4"):
         ffc_local_kernel(*ffc_args(1, 1, 6, 24, 8, 8, card))

@@ -359,6 +359,14 @@ def test_per_step_ffc_local_launches(ps):
     assert "ffc_local_launches" not in ps.per_step({"steps": 4, "feed_batches": 0}, tr)
 
 
+@pytest.mark.parametrize("counter", ["ffc_local_dgrad_launches", "ffc_local_wgrad_launches"])
+def test_per_step_ffc_local_backward_launches(ps, counter):
+    tr = _phase_trace(ps, WINDOW + RANGES + KERNELS)
+    got = ps.per_step({"steps": 4, "feed_batches": 0, counter: 144}, tr)
+    assert got[counter] == 36.0  # one dgrad and one wgrad call a block FFC a step
+    assert counter not in ps.per_step({"steps": 4, "feed_batches": 0}, tr)
+
+
 def test_a_small_hg_cell_under_profile_steps(ps):
     args = argparse.Namespace(workload="gan.hg-b5", seed=2**31 + 5, seconds=1.0, trace=0)
     small = {"config": {"base_width": 8, "discriminator_width": 8, "image_size": 128,
