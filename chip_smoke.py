@@ -364,6 +364,11 @@ FFC_GRAD_TOL = 1e-5
 FFC_BWD_NRMSE_TOL = 1e-6
 SERVE_REQUESTS, SERVE_BATCH_ITEMS, SERVE_MAX_BATCH = 16, 4, 8
 SERVE_SECRET = "chip-smoke-secret"
+DEEPFILL_CNUM = 48
+DF_EVAL_BATCH = 8
+# DeepFill's eval forward against the plain reference, NRMSE in the holes:
+# fp32 sums in another order read below it, the reference in TF32 above
+DF_EVAL_NRMSE_TOL = 1e-3
 # K1 is timed at the batch of the other kernels and at the profile's 8
 K1_BATCHES = (STAGE_BATCH, 8)
 # enc1 by graph replay at the batch of the other kernels and at the profile's 8
@@ -1605,6 +1610,102 @@ def phase_lama(dev):
     del state, vgg
     return {"ffc_local": train_launches + eval_launches, "ffc_local_dgrad": train_bwd[0],
             "ffc_local_wgrad": train_bwd[1]}
+
+
+def phase_deepfill(dev):
+    """DeepFill v2 on the main paths: one GAN step of ``make_train_step`` at
+    batch 2 (its coarse term in G's loss) and ``evaluate`` on one 512^2 PNG
+    tile, with the contextual attention's counters and the forward's
+    ranges; a master checkpoint of it served through the port's server;
+    and, on seeded weights (``torch_bench``'s rules), the eval forward
+    through ``BatchedInpainter`` at batch 8 against the plain reference
+    (``torch_bench/reference/deepfill.py``, fp32, TF32 off) in the holes,
+    which the reference in TF32 must read farther from than the port."""
+    from PIL import Image
+
+    from terra_gan_tpu_torch.models.deepfill import ContextualAttention, DeepFillV2Generator
+    from torch_bench.drivers.deepfill_train import seeded_generator
+    from torch_bench.reference import deepfill as df_reference
+
+    gen = torch.Generator().manual_seed(SEED + 71)
+    state = GANTrainState.create(init_generator(WIDTH, gen, dev, arch="deepfill_v2"),
+                                 init_discriminator(WIDTH, gen, dev))
+    vgg = init_vgg(gen, dev)
+    imgs, masks = dsm_tiles(DF_EVAL_BATCH, SIZE, SEED + 72)
+    calls, scores = ContextualAttention.calls, ContextualAttention.scores
+    cpu = [torch.profiler.ProfilerActivity.CPU]
+    with torch.profiler.profile(activities=cpu) as prof:
+        metrics = make_train_step(LoopConfig(batch_size=2).loss_config())(
+            state, device_batch(imgs[:2], masks[:2], dev), vgg)
+    ranges = {n: sum(e.name == n for e in prof.events())
+              for n in ("tg.df_coarse", "tg.df_refine", "tg.ctx_attn")}
+    train_calls = ContextualAttention.calls - calls
+    train_scores = ContextualAttention.scores - scores
+    state.generator.eval()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_deepfill_") as tmp:
+        root = Path(tmp)
+        Image.fromarray(imgs[0, ..., 0]).save(root / "t000.png")
+        Image.fromarray(masks[0, ..., 0]).save(root / "t000_mask_resized.png")
+        calls = ContextualAttention.calls
+        out = evaluate(root / "t000.png", root / "t000_mask_resized.png", state.generator,
+                       root / "out.png")
+        eval_calls = ContextualAttention.calls - calls
+        size = Image.open(out).size
+        export_pth(root / "master.pth", state)
+        service = InpaintService(str(root / "master.pth"), size=SIZE, out_size=OUTPUT_SIZE,
+                                 max_batch=4, device=dev)
+        srv = make_server(service, "127.0.0.1", 0, auth_secret=SERVE_SECRET)
+        serving = threading.Thread(target=srv.serve_forever)
+        serving.start()
+        try:
+            client = InpaintClient(f"http://127.0.0.1:{srv.server_port}",
+                                   auth_secret=SERVE_SECRET)
+            served = client.inpaint_batch([(imgs[i], masks[i]) for i in range(2)])
+        finally:
+            srv.shutdown()
+            serving.join(60)
+            srv.server_close()
+        architecture = torch.load(root / "master.pth", weights_only=True)["architecture"]
+    direct = BatchedInpainter(service.generator, dev, chunk=2, quantize_uint8=True)(
+        imgs[:2], masks[:2])
+    direct = [np.asarray(Image.fromarray(r[..., 0]).resize((OUTPUT_SIZE, OUTPUT_SIZE),
+                                                          Image.BILINEAR)) for r in direct]
+    served_gap = max(int(np.abs(a.reshape(b.shape).astype(int) - b).max())
+                     for a, b in zip(served, direct))
+    del state, vgg, service
+
+    sd = seeded_generator(DEEPFILL_CNUM, SEED + 73, dev)
+    G = DeepFillV2Generator(DEEPFILL_CNUM)
+    G.load_state_dict(sd)
+    got = torch.from_numpy(BatchedInpainter(G.to(dev), dev, chunk=DF_EVAL_BATCH)(imgs, masks))
+    batch = device_batch(imgs, masks, dev)
+    readings = {}
+    for prec in ("fp32", "tf32"):
+        with df_reference.precision(prec, dev):
+            readings[prec] = df_reference.eval_forward(sd, batch["image"], batch["mask"]).cpu()
+    hole = torch.from_numpy(masks == 0)
+    want = readings["fp32"][hole]
+    nrmse = {"port": rel_l2(got[hole], want), "tf32": rel_l2(readings["tf32"][hole], want)}
+    losses = [metrics[k].item() for k in ("g_loss", "d_loss", "g_coarse_l1")]
+    line("deepfill", train_step="gan batch 2", g_loss=f"{losses[0]:.5f}",
+         d_loss=f"{losses[1]:.5f}", g_coarse_l1=f"{losses[2]:.5f}", ranges=ranges,
+         ctx_attn_calls=(train_calls, eval_calls), ctx_attn_scores=train_scores,
+         written=size, served=architecture, served_vs_direct_grey=served_gap,
+         eval_batch=DF_EVAL_BATCH, hole_nrmse=f"{nrmse['port']:.3g}",
+         hole_nrmse_tf32=f"{nrmse['tf32']:.3g}", hole_std=f"{float(want.std()):.4f}")
+    length = (SIZE // 8) ** 2
+    require(all(math.isfinite(v) for v in losses), f"deepfill: non-finite losses {losses}")
+    require(train_calls == eval_calls == 1 and train_scores == 2 * length * length,
+            f"deepfill: the attention ran {train_calls} times in a GAN step ({train_scores} "
+            f"scores) and {eval_calls} in evaluate, not once each ({2 * length * length})")
+    require(ranges == {"tg.df_coarse": 1, "tg.df_refine": 1, "tg.ctx_attn": 1},
+            f"deepfill: ranges {ranges} in a GAN step, not one each")
+    require(size == (OUTPUT_SIZE, OUTPUT_SIZE), f"deepfill: evaluate wrote {size}")
+    require(architecture == "deepfill_v2" and served_gap <= SLICE_U8_TOL,
+            f"deepfill: served {architecture}, {served_gap} grey levels from BatchedInpainter")
+    require(nrmse["port"] <= DF_EVAL_NRMSE_TOL < nrmse["tf32"],
+            f"deepfill: eval forward at batch {DF_EVAL_BATCH} {nrmse['port']:.3g} NRMSE from the "
+            f"reference in the holes (limit {DF_EVAL_NRMSE_TOL}; TF32 {nrmse['tf32']:.3g})")
 
 
 def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -2974,6 +3075,7 @@ def main() -> None:
     # evaluate, its train mode and its human-guided mode
     runs.append(phase_train(dev, counters))
     runs.append(phase_lama(dev))
+    phase_deepfill(dev)
     phase_train_grad(dev, counters)
     runs.append(phase_serve(dev, counters))
     figures.update(phase_probes(dev))

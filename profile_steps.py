@@ -3,10 +3,10 @@
     python3 profile_steps.py --workload gan.hg-b5 --seed 7 [--seconds 51] [--out FILE]
 
 Runs one training cell of BENCHMARK.json (``gan.train-b32``,
-``gan.hg-b5`` or ``lama.train-b16``) as ``torch_bench/run.py`` does, with its own
-``torch.profiler`` session over the window (the harness's tracing stays
-off), and prints one JSON object: the cell's end-to-end metrics and
-``correct``, then
+``gan.hg-b5``, ``lama.train-b16`` or ``deepfill.train-b16``) as
+``torch_bench/run.py`` does, with its own ``torch.profiler`` session over
+the window (the harness's tracing stays off), and prints one JSON
+object: the cell's end-to-end metrics and ``correct``, then
 
   * ``busy_s``, ``window_s``, ``idle_pct``: the device's operations
     alone, with every user annotation left out (the benchmark's
@@ -45,6 +45,12 @@ off), and prints one JSON object: the cell's end-to-end metrics and
     ``lama_backward_ms``, the same of ``tg.ffc_local_bwd`` (the block
     FFCs' backward, opened on autograd's device thread) and of
     ``tg.g_backward`` itself for the rest of the step's backward;
+    with DeepFill v2 as G, ``ctx_attn_calls`` and ``ctx_attn_scores``
+    (``ContextualAttention.calls`` and ``.scores``: one attention a
+    forward, B L^2 score elements) and ``deepfill_forward_ms``, the
+    device ms a step launched in each of its forward's ranges
+    (``tg.df_coarse``, ``tg.ctx_attn``, ``tg.df_refine`` without the
+    attention, and ``tg.g_forward`` itself for the rest);
   * ``host_calls``: the host's CUDA runtime and driver calls a step, count
     and ms by name, and the span each blocking one (malloc, free,
     synchronise, copy) was made in;
@@ -81,6 +87,8 @@ from torch_bench.run import checkout_caches  # noqa: E402
 LAMA_RANGES = ("tg.lama_down", "tg.ffc_local", "tg.ffc_spectral", "tg.lama_up", "tg.g_forward")
 # and in the step's backward (ops/cuda/ffc_kernel.py's FFCLocal.backward)
 LAMA_BWD_RANGES = ("tg.ffc_local_bwd", "tg.g_backward")
+# and in DeepFill v2's forward (models/deepfill.py)
+DEEPFILL_RANGES = ("tg.df_coarse", "tg.ctx_attn", "tg.df_refine", "tg.g_forward")
 # calls that can hold the host until the device drains
 BLOCKING = ("cudaMalloc", "cudaFree", "cudaStreamSynchronize", "cudaDeviceSynchronize",
             "cudaEventSynchronize", "cudaMemcpy", "cudaMemcpyAsync")
@@ -107,6 +115,7 @@ def host_calls(calls, marks, window: Tuple[float, float], steps: int) -> dict:
 
 def counters(device: torch.device) -> Dict[str, float]:
     from terra_gan_tpu_torch.data.dataset import BatchLoader
+    from terra_gan_tpu_torch.models.deepfill import ContextualAttention
     from terra_gan_tpu_torch.models.lama import SpectralTransform
     from terra_gan_tpu_torch.ops.cuda.ffc_kernel import ffc_local, ffc_local_dgrad, ffc_local_wgrad
     from terra_gan_tpu_torch.ops.cuda.pconv_kernel import fused_pconv_train
@@ -118,7 +127,9 @@ def counters(device: torch.device) -> Dict[str, float]:
            "ffc_local_dgrad_launches": ffc_local_dgrad.launches,
            "ffc_local_wgrad_launches": ffc_local_wgrad.launches,
            "spectral_calls": SpectralTransform.calls,
-           "spectral_elements": SpectralTransform.elements}
+           "spectral_elements": SpectralTransform.elements,
+           "ctx_attn_calls": ContextualAttention.calls,
+           "ctx_attn_scores": ContextualAttention.scores}
     if device.type == "cuda":
         stats = torch.cuda.memory_stats(device)
         out.update(segments_allocated=stats.get("segment.all.allocated", 0),
@@ -187,6 +198,11 @@ def per_step(counts: dict, trace: PhaseTrace) -> dict:
                                   for k in LAMA_RANGES}
         out["lama_backward_ms"] = {k: 1e3 * trace.device_s_by_span.get(k, 0.0) / steps
                                    for k in LAMA_BWD_RANGES}
+    if counts.get("ctx_attn_calls"):
+        out["ctx_attn_calls"] = counts["ctx_attn_calls"] / steps
+        out["ctx_attn_scores"] = counts["ctx_attn_scores"] / steps
+        out["deepfill_forward_ms"] = {k: 1e3 * trace.device_s_by_span.get(k, 0.0) / steps
+                                      for k in DEEPFILL_RANGES}
     return out
 
 

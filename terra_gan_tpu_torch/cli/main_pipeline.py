@@ -12,7 +12,8 @@ The JAX CLI's flags and contracts for the modes the port runs:
     its tiles split on the checkerboard, and ONE master
     generator+discriminator trained across the parent grids in turn.
     The generator is the config's ``model.generator``: the PConv U-Net
-    (the default) or Big-LaMa's FFC ResNet at its published sizes. The
+    (the default), Big-LaMa's FFC ResNet or DeepFill v2 at its published
+    sizes. The
     state starts from the first of preempted.pth, ``--input_model``,
     the master checkpoint, _BASELINE_MODEL/BASELINE_MODEL.pth
     (``resolve_checkpoint``), else a fresh seeded init; a preempted.pth

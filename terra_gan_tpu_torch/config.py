@@ -14,9 +14,11 @@ bf16).
 
 The port adds one section of its own, ``model``: ``model.generator``
 picks the generator architecture that ``--mode train`` builds,
-"pconv_unet" (the default, the reference's) or "big_lama" (Big-LaMa's
-FFC ResNet, ``models/lama.py``); a checkpoint's own keys say which one
-it holds wherever one is loaded.
+"pconv_unet" (the default, the reference's), "big_lama" (Big-LaMa's
+FFC ResNet, ``models/lama.py``) or "deepfill_v2" (DeepFill v2's
+gated-convolution generator with contextual attention,
+``models/deepfill.py``); a checkpoint's own keys say which one it holds
+wherever one is loaded.
 
 ``LoopConfig`` is the flat view of ``TrainingConfig`` that the port's
 training loop reads (``LoopConfig.from_training``).
@@ -37,7 +39,7 @@ logger = logging.getLogger(__name__)
 # the JAX package's quantised evaluation modes (terra_gan_tpu/ops/quant.py:251)
 QUANT_MODES = ("w8a8", "w8a8_resident", "w8a8_resident_full")
 # the generator architectures ``model.generator`` names
-GENERATORS = ("pconv_unet", "big_lama")
+GENERATORS = ("pconv_unet", "big_lama", "deepfill_v2")
 
 
 def _get(d: Optional[Dict], *keys, default=None):

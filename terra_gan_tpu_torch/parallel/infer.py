@@ -23,8 +23,9 @@ from ..utils.device import resolve_device
 
 
 class BatchedInpainter:
-    """Eval-mode batched forward of a generator (PConvUNet or
-    FFCResNetGenerator: ``generator(x * m, m)`` on NHWC) on one device.
+    """Eval-mode batched forward of a generator (PConvUNet,
+    FFCResNetGenerator or DeepFillV2Generator: ``generator(x * m, m)`` on
+    NHWC) on one device.
 
     Usage:
         inp = BatchedInpainter(generator, "cuda", chunk=8)

@@ -157,7 +157,8 @@ class InpaintService:
     """Model, batcher and codecs behind the HTTP handler.
 
     The generator comes from a reference-layout ``.pth`` (``checkpoint``;
-    a PConvUNet or an FFCResNetGenerator, by its keys) or, without one,
+    a PConvUNet, an FFCResNetGenerator or a DeepFillV2Generator, by its
+    keys) or, without one,
     from a PConvUNet's random weights seeded with ``SEED``
     (``init_generator``). It runs on ``device``, the card unless the
     caller asks for the CPU, in eval mode, fp32.

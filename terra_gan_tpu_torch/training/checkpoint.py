@@ -4,8 +4,8 @@ A master checkpoint is the dict the reference writes (train.py:318-330,
 main_pipeline.py:386-397): ``epoch``, ``generator_state_dict``,
 ``discriminator_state_dict``, ``optimizer_G_state_dict``,
 ``optimizer_D_state_dict`` and ``config``, plus extras such as the
-losses, and ``architecture``, the generator's ("pconv_unet" or
-"big_lama", ``utils.weights.generator_architecture``). The Adam states
+losses, and ``architecture``, the generator's ("pconv_unet",
+"big_lama" or "deepfill_v2", ``utils.weights.generator_architecture``). The Adam states
 are torch's own, numbered by ``.parameters()`` order: 72 entries for the
 generator (its 14 frozen mask convs have none of their own state) and 16
 for the discriminator, as the reference's and the JAX package's

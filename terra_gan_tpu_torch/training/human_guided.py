@@ -1,8 +1,9 @@
 """Human-guided fine-tuning (counterpart of terra_gan_tpu/training/human_guided.py;
 reference: mvp_gan/src/training/human_guided_trainer.py:44-262).
 
-A generator-only fine-tune (no discriminator) of either generator
-(PConvUNet or FFCResNetGenerator) on matched human annotations: the
+A generator-only fine-tune (no discriminator) of any of the generators
+(PConvUNet, FFCResNetGenerator, DeepFillV2Generator: the loss on the
+final composite) on matched human annotations: the
 train-mode forward on ``real * mask``, HumanGuidedLoss (the perceptual
 term on a frozen VGG's features[:16]), and Adam at
 ``training.modes.human_guided.learning_rate``. The loader keeps the

@@ -27,7 +27,7 @@ def adam(params, lr: float) -> torch.optim.Adam:
 
 @dataclass
 class GANTrainState:
-    generator: nn.Module  # PConvUNet or FFCResNetGenerator
+    generator: nn.Module  # PConvUNet, FFCResNetGenerator or DeepFillV2Generator
     discriminator: Discriminator
     g_opt: torch.optim.Adam
     d_opt: torch.optim.Adam

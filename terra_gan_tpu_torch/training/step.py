@@ -6,7 +6,11 @@ each for G and D:
   * G objective: InpaintingLoss(gen, real, mask) + BCE(D(gen), 1)
     (train.py:183-204); the reference builds its criterion without a
     boundary weight, so the boundary term runs at 0.5 (the default of
-    ``InpaintingLossConfig``).
+    ``InpaintingLossConfig``). A generator with a coarse stage
+    (``forward_stages``: DeepFill v2's) also gives its coarse output x1
+    from the same forward, and DeepFill's coarse L1 (``coarse_l1``:
+    mean |real - x1| in [-1, 1] units, weight 1) is added to the
+    InpaintingLoss and reported as ``g_coarse_l1``.
   * D objective: 0.5 * (BCE(D(real), 1) + BCE(D(gen.detach()), 0))
     (train.py:209-219), on the generator output from before G's update.
     D's fake half is a new forward of the detached output: reusing the
@@ -39,6 +43,7 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 
 from ..losses import InpaintingLossConfig, inpainting_loss
+from ..models.deepfill import COARSE_L1_WEIGHT, coarse_l1
 from ..models.vgg import VGG16Features
 from ..utils.trace import span
 from .state import GANTrainState
@@ -63,12 +68,21 @@ def generator_objective(
 
     ``forward`` is the generator's forward (the generator itself, or its
     ``forward_plain``: the reference a card's kernel path is held to).
+    Without one, a generator whose class has ``forward_stages`` runs
+    that, and its coarse output's L1 joins the loss as ``coarse_l1``.
     """
     real, mask = batch["image"], batch["mask"]
+    stages = None if forward else getattr(type(state.generator), "forward_stages", None)
     with span("tg.g_forward"):
-        gen = (forward or state.generator)(real * mask, mask)
+        if stages is None:
+            gen, coarse = (forward or state.generator)(real * mask, mask), None
+        else:
+            gen, coarse = stages(state.generator, real * mask, mask)
     with span("tg.loss"):
         recon, comps = inpainting_loss(gen, real, mask, vgg, loss_config)
+        if coarse is not None:
+            comps["coarse_l1"] = coarse_l1(coarse, real)
+            recon = comps["total"] = recon + COARSE_L1_WEIGHT * comps["coarse_l1"]
     with span("tg.g_adv"):
         g_adv = bce_with_logits(state.discriminator(gen), 1.0)
     return recon + g_adv, gen, comps, g_adv

@@ -1,9 +1,10 @@
 """Weights: from the JAX package, from a .pth, or from a seed.
 
-Two generator architectures (``GENERATORS``, the config's
-``model.generator``): the PConv U-Net ("pconv_unet", the default) and
-Big-LaMa's FFC ResNet ("big_lama", ``models/lama.py``). A state dict
-says which it is by its keys, and a LaMa one its sizes by its shapes.
+Three generator architectures (``GENERATORS``, the config's
+``model.generator``): the PConv U-Net ("pconv_unet", the default),
+Big-LaMa's FFC ResNet ("big_lama", ``models/lama.py``) and DeepFill v2
+("deepfill_v2", ``models/deepfill.py``). A state dict says which it is
+by its keys, and a LaMa or DeepFill one its sizes by its shapes.
 
 Generators come in eval mode, discriminators in train mode (the mode
 the reference always runs them in); state dicts carry the reference's
@@ -27,6 +28,8 @@ import numpy as np
 import torch
 
 from ..config import GENERATORS
+from ..models import deepfill
+from ..models.deepfill import DEEPFILL_V2, DeepFillV2Generator, is_deepfill_state
 from ..models.discriminator import Discriminator
 from ..models.generator import PConvUNet
 from ..models.lama import BIG_LAMA, FFCResNetGenerator, is_lama_state, sizes_from_state
@@ -56,7 +59,9 @@ def generator_from_jax_variables(
 
 def generator_architecture(state: Mapping[str, Any]) -> str:
     """The ``GENERATORS`` name of a generator state dict, by its keys."""
-    return "big_lama" if is_lama_state(state) else "pconv_unet"
+    if is_lama_state(state):
+        return "big_lama"
+    return "deepfill_v2" if is_deepfill_state(state) else "pconv_unet"
 
 
 def load_generator(path: str | Path, device="cuda") -> torch.nn.Module:
@@ -66,7 +71,8 @@ def load_generator(path: str | Path, device="cuda") -> torch.nn.Module:
     trainer dict (``model_state_dict``) or a raw state dict, as the JAX
     package's ``load_generator_variables`` does. A PConvUNet's width
     comes from ``enc1.input_conv.weight``; a LaMa state dict (LaMa's
-    ``model.*`` keys) gives an FFCResNetGenerator of its sizes.
+    ``model.*`` keys) gives an FFCResNetGenerator of its sizes, a
+    DeepFill one (its published layer names) a DeepFillV2Generator.
     """
     obj = torch.load(path, map_location="cpu", weights_only=True)
     if isinstance(obj, dict) and "generator_state_dict" in obj:
@@ -77,6 +83,9 @@ def load_generator(path: str | Path, device="cuda") -> torch.nn.Module:
         sd = obj
     if is_lama_state(sd):
         return _load_state(FFCResNetGenerator(**sizes_from_state(sd)), sd, device).eval()
+    if is_deepfill_state(sd):
+        return _load_state(DeepFillV2Generator(**deepfill.sizes_from_state(sd)), sd,
+                           device).eval()
     width = int(sd["enc1.input_conv.weight"].shape[0])
     return _load_state(PConvUNet(width), sd, device).eval()
 
@@ -88,8 +97,10 @@ def init_generator(
 
     ``arch`` "pconv_unet": a PConvUNet of ``base_width``; "big_lama": an
     FFCResNetGenerator with ``ngf = base_width`` and Big-LaMa's other
-    sizes (``BIG_LAMA``). Convolutions get torch's default init,
-    U(+-1/sqrt(fan_in)) for weight and bias. The BatchNorm parameters
+    sizes (``BIG_LAMA``); "deepfill_v2": a DeepFillV2Generator at its
+    published sizes (``DEEPFILL_V2``, ``cnum`` 48), whatever
+    ``base_width``, which is the other two's width. Convolutions get
+    torch's default init, U(+-1/sqrt(fan_in)) for weight and bias. The BatchNorm parameters
     and running statistics are drawn too (gamma in [0.5, 1.5), beta and
     the mean from N(0, 0.1^2), the variance in [0.5, 1.5)), so that an
     eval forward exercises the folded BatchNorm. The values depend only
@@ -97,6 +108,8 @@ def init_generator(
     """
     if arch == "big_lama":
         model = FFCResNetGenerator(**{**BIG_LAMA, "ngf": base_width})
+    elif arch == "deepfill_v2":
+        model = DeepFillV2Generator(**DEEPFILL_V2)
     elif arch == "pconv_unet":
         model = PConvUNet(base_width)
     else:

@@ -367,6 +367,19 @@ def test_per_step_ffc_local_backward_launches(ps, counter):
     assert counter not in ps.per_step({"steps": 4, "feed_batches": 0}, tr)
 
 
+def test_per_step_contextual_attention_counts(ps):
+    tr = _phase_trace(ps, WINDOW + RANGES + KERNELS)
+    got = ps.per_step({"steps": 4, "feed_batches": 0, "ctx_attn_calls": 4,
+                       "ctx_attn_scores": 4 * 16 * 4096 * 4096}, tr)
+    assert got["ctx_attn_calls"] == 1.0  # DeepFill's one attention a forward
+    assert got["ctx_attn_scores"] == 16 * 4096 * 4096  # B L_q L_k at batch 16, 512^2
+    assert got["deepfill_forward_ms"] == {"tg.df_coarse": 0.0, "tg.ctx_attn": 0.0,
+                                          "tg.df_refine": 0.0, "tg.g_forward": 250.0}
+    assert ps.DEEPFILL_RANGES == ("tg.df_coarse", "tg.ctx_attn", "tg.df_refine", "tg.g_forward")
+    for key in ("ctx_attn_calls", "ctx_attn_scores", "deepfill_forward_ms"):
+        assert key not in ps.per_step({"steps": 4, "feed_batches": 0}, tr)
+
+
 def test_a_small_hg_cell_under_profile_steps(ps):
     args = argparse.Namespace(workload="gan.hg-b5", seed=2**31 + 5, seconds=1.0, trace=0)
     small = {"config": {"base_width": 8, "discriminator_width": 8, "image_size": 128,
